@@ -4,4 +4,4 @@
 archs whose layers the port implements are registered; the others follow
 with later slices.
 """
-from repro_torch.configs import smollm_360m  # noqa: F401
+from repro_torch.configs import mamba2_1_3b, smollm_360m  # noqa: F401

@@ -4,7 +4,8 @@ Each source under a kernel's ``csrc/`` is compiled on its own by ``nvcc`` into
 a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), placed in ``build/kernels/`` at the root of the checkout and
 named by the hash of the source and the flags: a changed source builds anew,
-an unchanged one is loaded as it is.
+an unchanged one is loaded as it is. :func:`build_all` starts one ``nvcc``
+per source, all together.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ PKG = Path(__file__).resolve().parent
 #: every CUDA source of the port, by library name
 SOURCES = {
     "flash_attention": PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "ssd": PKG / "ssd" / "csrc" / "ssd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,20 +49,42 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _start(name: str) -> subprocess.Popen | None:
+    """Start ``nvcc`` for one source unless its library exists."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(name: str, proc: subprocess.Popen | None) -> None:
+    if proc is None:
+        return
+    out, _ = proc.communicate()
+    target = _target(name)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{out}")
+    os.replace(tmp, target)
+
+
+def build_all() -> None:
+    """Build every source that is not built yet, one ``nvcc`` each, all
+    started together."""
+    procs = {name: _start(name) for name in SOURCES}
+    for name, proc in procs.items():
+        _finish(name, proc)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if need be."""
     lib = _LOADED.get(name)
     if lib is None:
-        target = _target(name)
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, target)
-        lib = _LOADED[name] = ctypes.CDLL(str(target))
+        _finish(name, _start(name))
+        lib = _LOADED[name] = ctypes.CDLL(str(_target(name)))
     return lib

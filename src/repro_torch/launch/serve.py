@@ -1,5 +1,6 @@
-"""Batched serving: prefill + greedy decode through the ring-buffer
-KV cache, on the card unless the caller asks for the CPU.
+"""Batched serving: prefill + greedy decode through each layer's cache
+(the ring-buffer KV cache of attention layers, the SSM state and conv
+tails of mamba layers), on the card unless the caller asks for the CPU.
 
 The importable surface is :class:`ServeSession` — build the model and its
 parameters once, then drive :meth:`~ServeSession.prefill` /
@@ -11,6 +12,8 @@ CLI (thin argparse wrapper over ServeSession):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       [--smoke] [--device cpu] --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      [--smoke] [--device cpu]
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ class ServeTimings:
 class ServeSession:
     """One resident serving instance: model and parameters built once.
 
-    ``prefill(batch)`` runs the prompt pass and keeps the KV caches and the
+    ``prefill(batch)`` runs the prompt pass and keeps the caches and the
     first greedy token as session state; ``decode_step()`` appends one
     greedy token per sequence. ``generate(prompt, n)`` chains the two.
     ``dtype`` overrides the config's compute dtype (e.g. ``"float32"``).
@@ -127,7 +130,7 @@ class ServeSession:
         return gen, tp, td
 
     def restart(self) -> ServeTimings:
-        """In-place restart: drop the KV caches, the pending greedy token and
+        """In-place restart: drop the caches, the pending greedy token and
         the position cursor, and re-initialize the parameters from the
         session seed; resident requests re-enter through :meth:`prefill`."""
         self._caches = None

@@ -8,8 +8,9 @@ tree the JAX package's (``embed/tok``, ``segments[i]`` as a tuple of
 per-layer dicts, ``final_norm/scale``), so weights move between the two
 packages by a plain mapping (:mod:`repro_torch.bridge`).
 
-This slice implements the ``mixer="attn"`` / ``mlp="dense"`` layer; the other
-mixers and MLPs raise ``NotImplementedError`` naming their ROADMAP item.
+The port implements the ``attn`` and ``mamba`` mixers and the ``dense`` and
+``none`` MLPs, in any pattern; MoE, MLA and cross-attention raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,11 +23,17 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.spec import init_params, is_spec, stack_specs, tree_map
 from repro_torch.utils import resolve_device
 
 Params = Any
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Leaves the reference reads in fp32 whatever the compute dtype: RMSNorm
+# scales (``scale``; mamba's gated-norm ``norm``, which the RMSNorm kernel
+# takes only in fp32), and mamba's ``A_log`` and ``dt_bias``, which feed the
+# fp32 ``A = -exp(A_log)`` and ``softplus(dt + dt_bias)``.
+_FP32_LEAVES = ("['scale']", "['norm']", "['A_log']", "['dt_bias']")
 
 
 # ---------------------------------------------------------------------------
@@ -91,9 +98,6 @@ def segment_plans(plans: list[LayerPlan], max_period: int = 12) -> list[Segment]
 # ---------------------------------------------------------------------------
 
 def _check_plan(cfg: ModelConfig, plan: LayerPlan) -> None:
-    if plan.mixer != "attn":
-        raise NotImplementedError(f"{cfg.name}: mixer {plan.mixer!r} is "
-                                  "ROADMAP Queue 1 item 8 (Mamba2)")
     if plan.cross_attn:
         raise NotImplementedError(f"{cfg.name}: cross-attention is ROADMAP "
                                   "Queue 1 item 11 (encoder-decoder)")
@@ -104,8 +108,11 @@ def _check_plan(cfg: ModelConfig, plan: LayerPlan) -> None:
 def _layer_specs(cfg: ModelConfig, plan: LayerPlan) -> dict:
     _check_plan(cfg, plan)
     d = cfg.d_model
-    specs: dict = {"ln1": L.rmsnorm_specs(d),
-                   "attn": attn_lib.attn_specs(cfg.attention, d)}
+    specs: dict = {"ln1": L.rmsnorm_specs(d)}
+    if plan.mixer == "attn":
+        specs["attn"] = attn_lib.attn_specs(cfg.attention, d)
+    else:
+        specs["mamba"] = mamba_lib.mamba_specs(cfg.ssm, d)
     if plan.mlp == "dense":
         specs["ln2"] = L.rmsnorm_specs(d)
         specs["mlp"] = L.mlp_specs(d, plan.d_ff, cfg.mlp_act)
@@ -139,7 +146,17 @@ def _apply_layer(cfg: ModelConfig, plan: LayerPlan, params: Params,
     new_cache: dict = {}
     acfg = cfg.attention
     x = L.rmsnorm(params["ln1"], h, cfg.norm_eps)
-    if mode == "decode":
+    if plan.mixer == "mamba":
+        kw = dict(d_model=cfg.d_model, dtype=dtype, norm_eps=cfg.norm_eps)
+        if mode == "decode":
+            y, new_cache["ssm"] = mamba_lib.mamba_decode(
+                params["mamba"], cfg.ssm, x, cache["ssm"], **kw)
+        elif mode == "prefill":
+            y, new_cache["ssm"] = mamba_lib.mamba_forward(
+                params["mamba"], cfg.ssm, x, return_state=True, **kw)
+        else:
+            y = mamba_lib.mamba_forward(params["mamba"], cfg.ssm, x, **kw)
+    elif mode == "decode":
         y, new_cache["kv"] = attn_lib.gqa_decode(
             params["attn"], acfg, x, cache["kv"], cur_index,
             window=plan.window, dtype=dtype)
@@ -191,7 +208,7 @@ class Model(nn.Module):
     The compute-dtype copies the layers use are made once, when parameters
     are set (``__init__``, :meth:`load_params`), not at every use: the
     numbers are identical and a decode step then reads bf16 weights only.
-    RMSNorm scales stay fp32, as the reference uses them.
+    The leaves the reference reads in fp32 (``_FP32_LEAVES``) stay fp32.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
@@ -224,9 +241,9 @@ class Model(nn.Module):
                         self.specs())
         self.params = _as_module(tree)
         self._compute = tree_map(
-            lambda path, t: t if path[-1] == "['scale']" else t.to(self.dtype),
+            lambda path, t: t if path[-1] in _FP32_LEAVES else t.to(self.dtype),
             _as_tree(self.params, tree),
-            is_leaf=lambda x: isinstance(x, torch.Tensor))
+            is_leaf=_is_tensor)
 
     def params_tree(self) -> Params:
         """The fp32 parameters as nested dicts/lists/tuples of tensors."""
@@ -236,19 +253,24 @@ class Model(nn.Module):
 
     def _run_segments(self, h, *, positions, mode, caches=None,
                       cur_index=None, max_cache_len=0):
-        """Apply all segments; returns (h, new_caches)."""
+        """Apply all segments; returns (h, new_caches).
+
+        A layer's cache is a dict keyed as the reference keys it
+        (``{"kv": {...}}`` or ``{"ssm": {...}}``), each leaf stacked over the
+        segment's repeats. Decode hands each layer views of its slice of the
+        stack, which the layer updates in place."""
         cfg, p = self.cfg, self._compute
-        is_tensor = lambda x: isinstance(x, torch.Tensor)  # noqa: E731
         new_caches = []
         for si, seg in enumerate(self.segments):
             built = [[] for _ in seg.pattern]     # prefill: one cache per repeat
             for r in range(seg.repeat):
                 for li, plan in enumerate(seg.pattern):
                     lp = tree_map(lambda _, t: t[r], p["segments"][si][li],
-                                  is_leaf=is_tensor)
+                                  is_leaf=_is_tensor)
                     c = None
                     if caches is not None:
-                        c = {"kv": {n: t[r] for n, t in caches[si][li]["kv"].items()}}
+                        c = tree_map(lambda _, t: t[r], caches[si][li],
+                                     is_leaf=_is_tensor)
                     h, nc = _apply_layer(cfg, plan, lp, h, positions=positions,
                                          dtype=self.dtype, mode=mode, cache=c,
                                          cur_index=cur_index,
@@ -257,10 +279,7 @@ class Model(nn.Module):
             if mode == "decode":
                 new_caches.append(caches[si])     # updated in place
             elif mode == "prefill":
-                new_caches.append(tuple(
-                    {"kv": {n: torch.stack([c["kv"][n] for c in cs])
-                            for n in ("k", "v", "pos")}}
-                    for cs in built))
+                new_caches.append(tuple(_stack(cs) for cs in built))
         return h, new_caches
 
     # -- public entry points ------------------------------------------------
@@ -314,17 +333,34 @@ class Model(nn.Module):
 
     def init_caches(self, batch: int, prompt_len: int) -> list:
         """Zero caches (empty slots) sized for a ``prompt_len`` context."""
+        cfg = self.cfg
         caches = []
         for seg in self.segments:
             pattern = []
             for plan in seg.pattern:
-                clen = min(_cache_len(self.cfg, plan), max(prompt_len, 1))
-                c = attn_lib.gqa_cache_init(self.cfg.attention, batch, clen,
-                                            self.dtype, self.device)
-                pattern.append({"kv": {n: t[None].repeat((seg.repeat,) + (1,) * t.dim())
-                                       for n, t in c.items()}})
+                if plan.mixer == "attn":
+                    clen = min(_cache_len(cfg, plan), max(prompt_len, 1))
+                    c = {"kv": attn_lib.gqa_cache_init(cfg.attention, batch, clen,
+                                                       self.dtype, self.device)}
+                else:
+                    c = {"ssm": mamba_lib.mamba_cache_init(
+                        cfg.ssm, batch, cfg.d_model, self.dtype, self.device)}
+                pattern.append(tree_map(
+                    lambda _, t: t[None].repeat((seg.repeat,) + (1,) * t.dim()),
+                    c, is_leaf=_is_tensor))
             caches.append(tuple(pattern))
         return caches
+
+
+def _is_tensor(x: Any) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def _stack(trees: list) -> Any:
+    """Nested dicts of tensors, shaped alike, stacked leaf by leaf."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _flatten(tree: Any, path: tuple[str, ...] = ()) -> dict[str, Any]:

@@ -1,7 +1,7 @@
 """The port's Model against the JAX package's, on the same weights (through
 the bridge) and the same tokens: full forward, prefill and every decode
 step, in fp32 to 1e-4 and in bf16 to 0.1. The JAX model runs unsharded and
-through its Pallas flash kernel in interpret mode."""
+through its Pallas flash and SSD kernels in interpret mode."""
 import dataclasses
 
 import jax
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.config import ParallelConfig
+from repro.config import AttentionConfig, ModelConfig, ParallelConfig, SSMConfig
 from repro.config import get_arch as jax_get_arch
 from repro.config import get_smoke as jax_get_smoke
 from repro.kernels import runtime
@@ -45,9 +45,12 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def _parity(cfg, *, atol: float, S: int = 24, k: int = 16, B: int = 2):
+def _parity(cfg, *, atol: float, S: int = 24, k: int = 16, B: int = 2,
+            self_atol: float | None = None):
     """forward, prefill(prompt[:k]) and decode steps k..S-1 agree with the
-    JAX package, and decode reproduces the port's own full forward."""
+    JAX package within ``atol``, and decode reproduces the port's own full
+    forward within ``self_atol`` (default ``atol``)."""
+    self_atol = atol if self_atol is None else self_atol
     jm, params, tm = both_models(cfg)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     jt, tt = jnp.asarray(toks), torch.from_numpy(toks)
@@ -65,7 +68,8 @@ def _parity(cfg, *, atol: float, S: int = 24, k: int = 16, B: int = 2):
         tl, tc = tm.decode_step(tc, tt[:, t], t)
         np.testing.assert_allclose(_np(tl), _np(jl), rtol=atol, atol=atol,
                                    err_msg=f"{cfg.name}: decode step {t}")
-        np.testing.assert_allclose(_np(tl), _np(full[:, t]), rtol=atol, atol=atol)
+        np.testing.assert_allclose(_np(tl), _np(full[:, t]), rtol=self_atol,
+                                   atol=self_atol)
     return jc, tc
 
 
@@ -110,8 +114,51 @@ def test_parity_bf16_smollm_smoke():
     _parity(jax_get_smoke("smollm-360m"), atol=0.1)
 
 
-def test_params_tree_and_specs_match_jax():
-    cfg = jax_get_arch("smollm-360m")
+SSM_CFG = ModelConfig(      # tests/test_serve.py's ssm decode-parity config
+    name="ssm", family="ssm", num_layers=2, d_model=64, d_ff=0,
+    vocab_size=256, max_seq_len=128, vocab_pad_multiple=64,
+    ssm=SSMConfig(state_dim=16, head_dim=16, n_groups=1, chunk_size=8))
+
+HYBRID_CFG = ModelConfig(   # tests/test_serve.py's hybrid config, dense MLPs,
+    name="hy", family="hybrid", num_layers=8, d_model=64, d_ff=128,  # 8 layers
+    vocab_size=256, max_seq_len=128, vocab_pad_multiple=64,
+    attn_every=4, attn_index=1,
+    attention=AttentionConfig(num_heads=4, num_kv_heads=2, head_dim=16),
+    ssm=SSMConfig(state_dim=16, head_dim=16, n_groups=1, chunk_size=8))
+
+
+def test_parity_ssm():
+    """Prefill spans two chunks and a ragged one; decode steps the state.
+    Decode against the port's own full forward: within 1e-3, the tolerance
+    of tests/test_serve.py's ssm decode parity (the recurrence and the
+    chunked scan sum in other orders)."""
+    _parity(_f32(SSM_CFG), atol=1e-4, S=24, k=19, self_atol=1e-3)
+
+
+def test_parity_mamba2_smoke():
+    _parity(_f32(jax_get_smoke("mamba2-1.3b")), atol=1e-4, S=48, k=40,
+            self_atol=1e-3)
+
+
+def test_parity_hybrid_attention_and_mamba():
+    """8 layers make one segment of the pattern (mamba, attn, mamba, mamba)
+    repeated twice: attention and mamba caches side by side in one stack."""
+    jc, tc = _parity(_f32(HYBRID_CFG), atol=1e-4, self_atol=1e-3)
+    assert len(tc) == 1
+    assert [sorted(c) for c in tc[0]] == [["ssm"], ["kv"], ["ssm"], ["ssm"]]
+    assert tc[0][1]["kv"]["k"].shape[0] == tc[0][0]["ssm"]["ssm"].shape[0] == 2
+
+
+def test_parity_bf16_mamba2_smoke():
+    """bf16: logits within 0.1. With A_log or dt_bias cast to bf16 (or the
+    gated-norm scale), every number moves and this fails."""
+    _parity(jax_get_smoke("mamba2-1.3b"), atol=0.1, S=48, k=40)
+
+
+def _specs_match_jax(arch: str) -> int:
+    """The port's spec tree has the JAX package's paths and shapes; returns
+    its parameter count."""
+    cfg = jax_get_arch(arch)
     jspecs = JaxModel(cfg, ParallelConfig(remat="none")).specs()
     tspecs = model_specs(port_config(cfg))
     jflat = {jax.tree_util.keystr(p): s.shape for p, s in
@@ -130,7 +177,15 @@ def test_params_tree_and_specs_match_jax():
             tflat[path] = t.shape
     walk(tspecs)
     assert tflat == jflat
-    assert num_params(tspecs) == 361_821_120
+    return num_params(tspecs)
+
+
+def test_params_tree_and_specs_match_jax():
+    assert _specs_match_jax("smollm-360m") == 361_821_120
+
+
+def test_mamba_params_tree_and_specs_match_jax():
+    assert _specs_match_jax("mamba2-1.3b") == 1_343_790_080
 
 
 def test_init_is_deterministic_per_seed():
@@ -151,6 +206,12 @@ def test_compute_weights_cast_once_norm_scales_stay_fp32():
     assert m._compute["segments"][0][0]["attn"]["wq"].dtype == torch.bfloat16
     assert m._compute["segments"][0][0]["ln1"]["scale"].dtype == torch.float32
     assert m.params["embed"]["tok"].dtype == torch.float32
+    mamba = Model(tcfg.get_smoke("mamba2-1.3b"), device="cpu")._compute
+    layer = mamba["segments"][0][0]["mamba"]
+    for name in ("norm", "A_log", "dt_bias"):
+        assert layer[name].dtype == torch.float32, name
+    for name in ("D", "in_x", "conv_x", "conv_x_b", "out"):
+        assert layer[name].dtype == torch.bfloat16, name
 
 
 def test_init_caches_shapes():
@@ -159,6 +220,13 @@ def test_init_caches_shapes():
     kv = caches[0][0]["kv"]
     assert kv["k"].shape == (cfg.num_layers, 3, 40, 2, 20)
     assert bool((kv["pos"] == -1).all())
+    cfg = tcfg.get_smoke("mamba2-1.3b")
+    ssm = Model(cfg, device="cpu").init_caches(batch=3, prompt_len=40)[0][0]["ssm"]
+    assert ssm["ssm"].shape == (cfg.num_layers, 3, 12, 16, 16)
+    assert ssm["ssm"].dtype == torch.float32
+    assert ssm["conv_x"].shape == (cfg.num_layers, 3, 3, 192)
+    assert ssm["conv_B"].shape == ssm["conv_C"].shape == (cfg.num_layers, 3, 3, 16)
+    assert ssm["conv_x"].dtype == torch.bfloat16
 
 
 def test_model_runs_on_the_card_unless_asked():
@@ -169,7 +237,6 @@ def test_model_runs_on_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(family="ssm", ssm=tcfg.SSMConfig()), "item 8"),
     (dict(moe=tcfg.MoEConfig(num_experts=4, expert_ff=32)), "item 9"),
     (dict(attention=tcfg.AttentionConfig(kind="mla", kv_lora_rank=16)), "item 10"),
 ])

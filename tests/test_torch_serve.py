@@ -93,3 +93,27 @@ def test_cli_serves_on_the_cpu(monkeypatch):
         "serve", "--arch", "smollm-360m", "--smoke", "--device", "cpu",
         "--batch", "2", "--prompt-len", "6", "--gen", "3", "--restarts", "1"])
     serve_cli.main()
+
+
+def test_mamba_session_tokens_equal_jax_greedy_generate():
+    cfg = dataclasses.replace(jax_get_smoke("mamba2-1.3b"), dtype="float32")
+    jm = JaxModel(cfg, ParallelConfig(remat="none", moe_impl="dense"))
+    params = jm.init(jax.random.PRNGKey(5))
+    sess = ServeSession("mamba2-1.3b", smoke=True, device="cpu", dtype="float32")
+    sess.model.load_params(params_from_numpy(jax.tree_util.tree_map(np.asarray, params)))
+    batch = sess.make_batch(2, 37, seed=2)       # a chunk of 32, a ragged one of 5
+    with runtime.pallas_enabled(interpret=True):
+        want = jax_greedy_generate(jm, params, jnp.asarray(batch["tokens"].numpy()), 8)
+    gen, _, _ = sess.generate(batch, 8)
+    np.testing.assert_array_equal(gen.numpy(), np.asarray(want))
+
+
+def test_mamba_session_stream_is_contiguous():
+    sess = ServeSession("mamba2-1.3b", smoke=True, device="cpu")
+    batch = sess.make_batch(2, 9, seed=3)
+    gen, _, _ = sess.generate(batch, 6)
+    sess.prefill(batch)
+    a, _ = sess.decode_step(2)
+    b, _ = sess.decode_step(4)
+    np.testing.assert_array_equal(torch.cat([a, b], dim=1).numpy(), gen.numpy())
+    assert int(gen.min()) >= 0 and int(gen.max()) < sess.cfg.padded_vocab
