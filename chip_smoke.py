@@ -10,7 +10,10 @@ from a seed): smollm-360m (flash attention, RMSNorm) and mamba2-1.3b (SSD
 scan, RMSNorm). For each it checks the launch counts, the token stream, the
 cache against a full forward, and the card against the CPU, and prints:
 
-  * the card's name and power limit (``nvidia-smi``),
+  * the card's name and power limit (``nvidia-smi``), the build time, and
+    per CUDA kernel its registers, shared memory and spills (``nvcc -Xptxas
+    -v``) and counts of the SASS opcodes that show its design (wgmma, TMA,
+    mbarrier, mma.sync, cp.async, ldmatrix; ``cuobjdump -sass``),
   * one line per check, the end-to-end prefill/decode tokens/s (median of
     warm repeats), and a torch.profiler breakdown of one prefill and eight
     decode steps (device busy time, launches, top kernels),
@@ -55,8 +58,10 @@ def check(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call, from CUDA events around ``iters`` calls.
+def time_ms(fn, iters: int = 20, warmup: int = 3, rounds: int = 5) -> float:
+    """Device time per call: the median over ``rounds`` of CUDA events
+    around ``iters`` calls (one round alone has read 20% high on a kernel of
+    60 us).
 
     A sleep kernel first keeps the stream busy while the host enqueues the
     calls, so the events time the calls back to back and not the host's
@@ -67,13 +72,64 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(iters * 200_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(rounds):
+        torch.cuda._sleep(iters * 200_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+# ---------------------------------------------------------------------------
+# what was built
+# ---------------------------------------------------------------------------
+
+# SASS opcodes that show the design in the compiled code: wgmma (HGMMA),
+# mma.sync (HMMA), TMA loads (UTMALDG), mbarrier operations (SYNCS), cp.async
+# (LDGSTS), ldmatrix (LDSM); and the ones each library must contain
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "LDGSTS", "LDSM")
+SASS_REQUIRED = {"flash_attention": ("HGMMA", "UTMALDG", "SYNCS"), "ssd": ("HMMA", "LDGSTS")}
+
+
+def report_build() -> None:
+    """Per kernel of each CUDA source: registers, shared memory and spills as
+    ``nvcc -Xptxas -v`` printed them, and counts of the SASS opcodes above
+    (``cuobjdump -sass``). Fails if a library lacks an opcode its design
+    needs."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in build.SOURCES:
+        kernels, cur = [], None
+        for line in build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = {"fn": m.group(1), "regs": "?", "smem": "0", "spill": "?"}
+                kernels.append(cur)
+            elif cur is not None and "spill stores" in line:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                cur["spill"] = f"{m.group(1)}/{m.group(2)}" if m else "?"
+            elif cur is not None and "Used" in line:
+                m = re.search(r"Used (\d+) registers", line)
+                cur["regs"] = m.group(1) if m else "?"
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = m.group(1) if m else "0"
+        for k in kernels:
+            print(f"ptxas {name}: {k['fn'][:100]}: {k['regs']} registers, {k['smem']} bytes "
+                  f"static smem, spill stores/loads {k['spill']} bytes", flush=True)
+        sass = subprocess.run([cuobjdump, "-sass", str(build.library(name))],
+                              capture_output=True, text=True, timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+        print(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()),
+              flush=True)
+        check(all(counts[op] > 0 for op in SASS_REQUIRED[name]),
+              f"{name}: the compiled library contains "
+              f"{', '.join(SASS_REQUIRED[name])}")
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +189,12 @@ def check_flash(torch) -> dict:
         ("d128", 2, 300, 300, 8, 2, 128, torch.bfloat16, True, 0, 0.0),
         ("fp32", 2, 257, 257, 15, 5, 64, torch.float32, True, 0, 0.0),
         ("fp32_masked", 1, 70, 150, 4, 2, 128, torch.float32, True, 0, 0.0),
+        # edge cases of the tile classes (empty / full / partial by position)
+        ("single_tile", 1, 64, 64, 1, 1, 64, torch.bfloat16, True, 0, 0.0),
+        ("tail_offset", 2, 200, 1000, 15, 5, 64, torch.bfloat16, True, 0, 0.0),
+        ("per_batch_pos", 3, 150, 300, 15, 5, 64, torch.bfloat16, True, 0, 0.0),
+        ("bf16_masked", 1, 70, 150, 4, 2, 128, torch.bfloat16, True, 0, 0.0),
+        ("d128_window24", 2, 300, 300, 8, 2, 128, torch.bfloat16, True, 24, 0.0),
     ]
     row = None
     for name, B, Sq, Skv, H, KV, D, dtype, causal, window, softcap in cases:
@@ -141,11 +203,14 @@ def check_flash(torch) -> dict:
         off = max(Skv - Sq, 0)          # queries sit at the tail of the keys
         qp = torch.arange(off, off + Sq, dtype=torch.int32, device="cuda")
         kp = torch.arange(Skv, dtype=torch.int32, device="cuda")
-        if name == "fp32_masked":       # empty slots and fully masked rows
+        if name.endswith("_masked"):    # empty slots and fully masked rows
             kp = kp + 10
             kp[-40:] = -1
             qp = torch.arange(Sq, dtype=torch.int32, device="cuda") - 5
         qp, kp = qp.expand(B, Sq), kp.expand(B, Skv)
+        if name == "per_batch_pos":     # row 1's keys 37 later, row 2's queries 50 earlier
+            kp = kp + torch.tensor([0, 37, 0], dtype=torch.int32, device="cuda")[:, None]
+            qp = qp - torch.tensor([0, 0, 50], dtype=torch.int32, device="cuda")[:, None]
         kw = dict(causal=causal, window=window, softcap=softcap)
         out = flash_attention(q, k, v, qp, kp, **kw)
         ref = flash_attention_ref(q, k, v, qp, kp, **kw)
@@ -161,13 +226,14 @@ def check_flash(torch) -> dict:
               and bool(torch.isfinite(out).all()) and worst <= 1.0,
               f"flash_attention {name}: max_abs_err {err:.3e}, worst |d|/limit "
               f"{worst:.3f} <= 1 ({what})")
-        if name == "fp32_masked":
+        if name.endswith("_masked"):
             dead = out[:, :10].abs().max().item()   # q_pos < 10: nothing visible
             check(dead == 0.0, f"flash_attention fully masked rows are 0 ({dead})")
         if name != "main":
             continue
         ms = time_ms(lambda: flash_attention(q, k, v, qp, kp, **kw))
-        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, qp, kp, **kw), iters=5)
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, qp, kp, **kw), iters=5,
+                           rounds=3)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
@@ -290,6 +356,8 @@ def check_ssd(torch) -> dict:
         ("smoke", 2, 70, 12, 16, 1, 16, 32, torch.float32, 1.0, 0.0, 16.0),
         ("smoke_bf16", 2, 70, 12, 16, 1, 16, 32, torch.bfloat16, 1.0, 0.0, 16.0),
         ("large_dt", 2, 300, 16, 64, 1, 128, 256, torch.bfloat16, 20.0, 0.2, 16.0),
+        ("chunk64_L300", 2, 300, 64, 64, 1, 128, 64, torch.bfloat16, 1.0, 0.0, 16.0),
+        ("L5", 2, 5, 64, 64, 1, 128, 256, torch.bfloat16, 1.0, 0.0, 16.0),
     ]
     row = None
     for name, B, L, H, P, G, N, chunk, dtype, dt_scale, zero_dt, a_max in cases:
@@ -312,15 +380,21 @@ def check_ssd(torch) -> dict:
         if name != "main":
             continue
         ms = time_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=chunk), iters=10)
-        plain_ms = time_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=cl), iters=3)
+        plain_ms = time_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=cl), iters=3, rounds=3)
+        # the useful operations (ssd_work, not the split's extra passes)
+        # over the tensor cores' bf16 rate, which is where the products run,
+        # and, beside it, over the fp32 CUDA-core rate
         ops = ssd_work(torch, L, cl, B, H, P, G, N)
         nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, Bm, Cm, y, st))
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]) * 1e3
-        by = "operations" if ops / PEAK_OPS["float32"] > nbytes / HBM_BYTES_PER_S else "bytes"
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound = max(t_bytes, ops / PEAK_OPS["bfloat16"]) * 1e3
+        by = "operations" if ops / PEAK_OPS["bfloat16"] > t_bytes else "bytes"
+        bound_fp32 = max(t_bytes, ops / PEAK_OPS["float32"]) * 1e3
         print(f"ssd main (B={B} L={L} H={H} P={P} G={G} N={N} chunk {cl} "
               f"{str(dtype)[6:]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}; {ops:.4e} fp32 ops, {nbytes} bytes)",
-              flush=True)
+              f"bound {bound:.4f} ms on the tensor cores ({by}; {ops:.4e} ops at "
+              f"989 TFLOP/s, {nbytes} bytes), {bound_fp32:.4f} ms on the fp32 "
+              f"CUDA cores", flush=True)
         # library_ms: none. No single PyTorch call computes the SSD scan.
         row = {"name": "ssd", "route": "cuda",
                "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
@@ -622,6 +696,7 @@ def main() -> int:
         t0 = time.perf_counter()
         build.build_all()
         print(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+        report_build()
         rows = [check_flash(torch), check_rmsnorm(torch), check_ssd(torch)]
         launches, e2e = {}, {}
         for arch in ARCHS:

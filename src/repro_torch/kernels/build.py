@@ -5,7 +5,9 @@ a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), placed in ``build/kernels/`` at the root of the checkout and
 named by the hash of the source and the flags: a changed source builds anew,
 an unchanged one is loaded as it is. :func:`build_all` starts one ``nvcc``
-per source, all together.
+per source, all together. ``nvcc`` runs with ``-Xptxas -v``; what it prints
+(registers, shared memory and spills per kernel) is kept beside the library
+and read back by :func:`build_log`.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ SOURCES = {
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -43,7 +45,7 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def _target(name: str) -> Path:
+def library(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -51,7 +53,7 @@ def _target(name: str) -> Path:
 
 def _start(name: str) -> subprocess.Popen | None:
     """Start ``nvcc`` for one source unless its library exists."""
-    target = _target(name)
+    target = library(name)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -65,11 +67,12 @@ def _finish(name: str, proc: subprocess.Popen | None) -> None:
     if proc is None:
         return
     out, _ = proc.communicate()
-    target = _target(name)
+    target = library(name)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{out}")
+    target.with_suffix(".log").write_text(out)
     os.replace(tmp, target)
 
 
@@ -81,10 +84,16 @@ def build_all() -> None:
         _finish(name, proc)
 
 
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built this source's library."""
+    log = library(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if need be."""
     lib = _LOADED.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = _LOADED[name] = ctypes.CDLL(str(_target(name)))
+        lib = _LOADED[name] = ctypes.CDLL(str(library(name)))
     return lib

@@ -52,6 +52,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         raise ValueError("ssd: inputs on different devices")
     if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
         raise ValueError("ssd: inputs must be contiguous")
+    if x.dtype == torch.bfloat16 and (cl % 8 or any(t.data_ptr() % 16 for t in (x, Bm, Cm))):
+        raise ValueError(f"ssd: bf16 needs a chunk length that is a multiple of 8 "
+                         f"(got {cl}) and 16-byte aligned x, B, C")
     from repro_torch.kernels.ssd.kernel import ssd_cuda
     out = ssd_cuda(x, dt, A, Bm, Cm, cl)
     ssd.launches += 1

@@ -80,6 +80,137 @@ def test_ssd_wrapper_rejects_devices_without_a_kernel():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's bf16 arithmetic, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+#
+# The bf16 kernel runs the passes of ssd_ref (C·Bᵀ per group, chunk states,
+# the state recurrence, the chunk scan) on the tensor cores: each product of
+# two bf16 values is exact in fp32 and sums are fp32, and the three products
+# with an fp32 operand (W x, (w∘x)ᵀ B, C R) split that operand into bf16
+# parts. This emulates it in torch (fp32 matmuls of bf16-valued tensors) and
+# holds it to check_ssd's per-element limits in chip_smoke.py.
+
+def _split(v: torch.Tensor, parts: int) -> list:
+    """v as ``parts`` bf16 values (hi, mid, lo, ...), each of what is left."""
+    out = []
+    for _ in range(parts):
+        p = v.to(torch.bfloat16).float()
+        out.append(p)
+        v = v - p
+    return out
+
+
+def _mm_split(a, b, parts, *, split_a=True):
+    """a @ b, the fp32 operand cut into bf16 parts, smallest part first."""
+    if split_a:
+        return sum(p @ b for p in reversed(_split(a, parts)))
+    return sum(a @ p for p in reversed(_split(b, parts)))
+
+
+def _four_pass(x, dt, A, Bm, Cm, chunk, parts):
+    """The kernel's passes in fp32 with bf16 products; y in fp32."""
+    from repro_torch.kernels.ssd.ref import chunk_cumsum
+    b, L, H, P = x.shape
+    G, N = Bm.shape[-2:]
+    rep, cl = H // G, min(chunk, L)
+    nc = -(-L // cl)
+    pad = nc * cl - L
+
+    def rows(t, width):                     # pad L with zero rows, cut into chunks
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, nc, cl, *width)
+    xc, dtc = rows(x, (H, P)), rows(dt, (H,))
+    Bc, Cc = rows(Bm, (G, N)), rows(Cm, (G, N))
+    cum = chunk_cumsum(dtc * A.float(), dim=2)                       # (b, nc, cl, H)
+    CB = torch.einsum("bcign,bcjgn->bcgij", Cc.double(), Bc.double()).float()
+    tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool))
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+    S = torch.stack([_mm_split((w[..., h, None] * xc[..., h, :]).transpose(-1, -2),
+                               Bc[:, :, :, h // rep], parts) for h in range(H)], dim=2)
+    T, R = torch.zeros((b, H, P, N)), []
+    for n in range(nc):                     # R[:, n]: the state entering chunk n
+        R.append(T)
+        T = torch.exp(cum[:, n, -1, :])[..., None, None] * T + S[:, n]
+    R = torch.stack(R, dim=1)
+    ys = []
+    for h in range(H):
+        seg = cum[..., :, None, h] - cum[..., None, :, h]
+        W = CB[:, :, h // rep] * torch.exp(torch.where(tri, seg, -torch.inf)) \
+            * dtc[:, :, None, :, h]
+        inter = _mm_split(Cc[:, :, :, h // rep], R[:, :, h].transpose(-1, -2), parts,
+                          split_a=False)
+        ys.append(torch.exp(cum[..., h])[..., None] * inter
+                  + _mm_split(W, xc[:, :, :, h], parts))
+    return torch.stack(ys, dim=3).reshape(b, nc * cl, H, P)[:, :L], T
+
+
+# as check_ssd draws them: small dt (trained Mamba2) and large dt with dt = 0 rows
+SPLIT_CASES = {"small_dt": (0.01, 0.0, 2.0), "large_dt": (20.0, 0.2, 16.0)}
+
+
+def _split_inputs(name):
+    dt_scale, zero_dt, a_max = SPLIT_CASES[name]
+    rng = np.random.default_rng(13)
+    B, L, H, P, G, N = 2, 300, 4, 64, 1, 128
+    x = torch.from_numpy(rng.standard_normal((B, L, H, P), dtype=np.float32)).bfloat16()
+    dt = np.logaddexp(rng.standard_normal((B, L, H)), 0).astype(np.float32) * dt_scale
+    dt = torch.from_numpy(dt * (rng.random((B, L, H)) >= zero_dt))
+    A = -torch.from_numpy(np.exp(rng.random(H) * np.log(a_max)).astype(np.float32))
+    Bm, Cm = (torch.from_numpy(0.5 * rng.standard_normal((B, L, G, N), dtype=np.float32))
+              .bfloat16() for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _pallas(x, dt, A, Bm, Cm, chunk):
+    """The JAX Pallas kernel (interpret mode on the CPU, as in
+    test_ssd_matches_pallas) on the same values; y rounded to x's dtype."""
+    y, st = jax_ssd(*(jnp.asarray(_np(t)) for t in (x, dt, A, Bm, Cm)), chunk=chunk)
+    return torch.from_numpy(_np(y)).to(x.dtype), torch.from_numpy(_np(st))
+
+
+def _worst_over_limit(x, dt, A, Bm, Cm, chunk, parts, reference):
+    """check_ssd's bf16 rule, per element: |d| <= 2**-6 |ref| + 1e-5 ref_abs on
+    y (rounded to bf16, as the kernel stores it) and on the fp32 state, ref
+    and ref_abs (the reference on |x|, |B|, |C|) from ``reference``;
+    returns the largest |d| / limit of each."""
+    y, st = _four_pass(x, dt, A, Bm, Cm, chunk, parts)
+    yr, sr = reference(x, dt, A, Bm, Cm, chunk=chunk)
+    ya, sa = reference(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk=chunk)
+
+    def worst(out, ref, ref_abs):
+        d = (out.float() - ref.float()).abs()
+        lim = 2.0 ** -6 * ref.float().abs() + 1e-5 * ref_abs.float()
+        return torch.where(d == 0, torch.zeros_like(d), d / lim).max().item()
+    return worst(y.bfloat16(), yr, ya), worst(st, sr, sa)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("chunk", [256, 64])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_ssd_split_passes_within_the_chip_limits(case, chunk, parts):
+    """Two parts are enough at these inputs; the kernel takes three (its
+    state then stays within ~1% of the limit, not ~20%). Against the Pallas
+    kernel at small dt only: at large dt its fp32 within-chunk cumsum (|cum|
+    reaches thousands) moves its own y out of these limits against ssd_ref,
+    whose cumsum is fp64 as the CUDA kernel's is."""
+    arrs = _split_inputs(case)
+    pallas = parts == 3 and case == "small_dt"
+    for reference in (ssd_ref, _pallas) if pallas else (ssd_ref,):
+        wy, ws = _worst_over_limit(*arrs, chunk, parts, reference)
+        assert wy <= 1.0 and ws <= 1.0, (reference.__name__, wy, ws)
+
+
+@pytest.mark.parametrize("chunk", [256, 64])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_ssd_single_bf16_pass_fails_the_chip_limits(case, chunk):
+    """Why the kernel splits: with the fp32 operand rounded to bf16 once, the
+    result leaves check_ssd's limits (y in every case; the state too at
+    small dt, where every row reaches it)."""
+    wy, ws = _worst_over_limit(*_split_inputs(case), chunk, 1, ssd_ref)
+    assert wy > 1.0 and (ws > 1.0 or case == "large_dt"), (wy, ws)
+
+
+# ---------------------------------------------------------------------------
 # the mamba2 block, function by function
 # ---------------------------------------------------------------------------
 
