@@ -1,8 +1,10 @@
 """Model configuration: frozen dataclasses and the ``--arch`` registry.
 
 Field names and defaults are those of ``repro.config`` (the JAX package), so
-a config converts between the two field for field. ``ParallelConfig`` is not
-here yet: the port has no device mesh.
+a config converts between the two field for field. ``ParallelConfig`` is
+copied whole; the port reads its ``remat`` and ``grad_dtype`` and has no
+device mesh yet, so its sharding fields are unused until ROADMAP Queue 1
+item 12.
 """
 from __future__ import annotations
 
@@ -141,6 +143,52 @@ class ModelConfig:
             raise ValueError(f"{self.name}: moe needs expert_ff")
         if self.family == "audio" and self.encoder_layers <= 0:
             raise ValueError(f"{self.name}: audio model needs encoder layers")
+
+
+# ---------------------------------------------------------------------------
+# parallelism / run configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX package's ``ParallelConfig``, field for field.
+
+    The port reads ``remat`` (``none``; ``full`` recomputes each layer in the
+    backward pass; ``dots`` does the same, see ``Model``) and ``grad_dtype``
+    (``float32``: gradients of the fp32 masters; ``bfloat16``: gradients of
+    a bf16 cast of them, applied to the fp32 masters). The mesh and sharding
+    fields (``zero``, ``shard_model_axes``, ``sequence_parallel``,
+    ``expert_parallel``, ``moe_impl``, ``decode_moe_impl``) wait for ROADMAP
+    Queue 1 item 12; ``scan_layers`` and ``use_pallas`` have no meaning here
+    (a Python loop walks the layers; the kernels are always the card's)."""
+    zero: str = "zero3"
+    shard_model_axes: bool = True
+    sequence_parallel: bool = True
+    expert_parallel: bool = True
+    remat: str = "dots"              # none | full | dots
+    scan_layers: bool = True
+    grad_dtype: str = "float32"      # float32 | bfloat16
+    moe_impl: str = "gshard"
+    decode_moe_impl: str = "dense"
+    use_pallas: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 8
+    seq_len: int = 512
+    microbatches: int = 1            # gradient accumulation steps
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    z_loss: float = 1e-4             # unread, as in the JAX package (Model.loss)
+    seed: int = 0
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ PKG = Path(__file__).resolve().parent
 #: every CUDA source of the port, by library name
 SOURCES = {
     "flash_attention": PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": PKG / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     "ssd": PKG / "ssd" / "csrc" / "ssd.cu",
 }
 

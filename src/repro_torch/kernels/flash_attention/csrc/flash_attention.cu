@@ -68,7 +68,12 @@
 // inside the kernels: rows past Sq are never stored, kv rows past Skv are
 // zeros with position -1.
 //
-// Still to come (later work): the backward kernel, with training.
+// Training needs the per-row log-sum-exp for the backward pass
+// (flash_attention_bwd.cu). Both kernels take it as a template flag: the
+// entry flash_attention_fwd_lse instantiates them with LSE = true and writes
+// lse (B, H, Sq) fp32, natural log, +inf for a row that sees nothing; the
+// serving entry flash_attention_fwd instantiates LSE = false, which compiles
+// to the kernel without that store.
 #include <cuda.h>           // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +139,7 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int STAGES = 3;          // K/V ring depth
 constexpr int CLS_PARTIAL = 0, CLS_FULL = 1, CLS_END = 2;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct TcCfg {
@@ -374,12 +380,13 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
   wgmma_commit();
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ q_pos,
     const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ o, int Sq, int Skv,
-    int H, int KV, int causal, int window, float scale, float softcap) {
+    int H, int KV, int causal, int window, float scale, float softcap,
+    float* __restrict__ lse) {
   using C = TcCfg<D>;
   constexpr int BKV = C::BKV;
   extern __shared__ uint8_t smem_raw[];
@@ -645,6 +652,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma(
         *reinterpret_cast<__nv_bfloat162*>(o + (((long long)b * Sq + row_hi) * H + h) * D + c) =
             __floats2bfloat162_rn(acc[4 * n + 2] * inv_hi, acc[4 * n + 3] * inv_hi);
     }
+    if constexpr (LSE) {
+      // m is in log2 units (scores times ks, or the capped score times log2 e)
+      if (t == 0 && row_lo < Sq)
+        lse[((long long)b * H + h) * Sq + row_lo] =
+            l_lo > 0.f ? (m_lo + log2f(l_lo)) * LN2 : INFINITY;
+      if (t == 0 && row_hi < Sq)
+        lse[((long long)b * H + h) * Sq + row_hi] =
+            l_hi > 0.f ? (m_hi + log2f(l_hi)) * LN2 : INFINITY;
+    }
   }
 }
 
@@ -662,7 +678,7 @@ constexpr int simt_smem_floats() {
        + BQ * (BK + 4);    // sP  [BQ][BK+4], probabilities of the tile
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(SIMT_THREADS) flash_fwd_simt(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ q_pos,
@@ -670,7 +686,7 @@ __global__ void __launch_bounds__(SIMT_THREADS) flash_fwd_simt(
     int H, int KV, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, int window, float scale,
-    float softcap) {
+    float softcap, float* __restrict__ lse) {
   constexpr int CO = D / 16;          // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -793,6 +809,10 @@ __global__ void __launch_bounds__(SIMT_THREADS) flash_fwd_simt(
     float* orow = o + (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < CO; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
+    if constexpr (LSE) {
+      if (tx == 0)
+        lse[((long long)b * H + h) * Sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    }
   }
 }
 
@@ -804,6 +824,7 @@ struct Args {
   const void *q, *k, *v;
   const int *q_pos, *kv_pos;
   void* o;
+  float* lse;     // null: the serving kernels, which write no LSE
   int B, Sq, Skv, H, KV;
   const long long* st;
   int causal, window;
@@ -863,7 +884,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool LSE>
 int launch_wgmma(const Args& a) {
   using C = TcCfg<D>;
   for (int i = 0; i < 9; ++i)
@@ -877,28 +898,39 @@ int launch_wgmma(const Args& a) {
       !make_map(&tv, a.v, a.B, a.Skv, a.KV, D, a.st + 6, C::BKV))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      flash_fwd_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.H, a.B, (a.Sq + TC_BQ - 1) / TC_BQ);
-  flash_fwd_wgmma<D><<<grid, TC_THREADS, C::SMEM, a.stream>>>(
+  flash_fwd_wgmma<D, LSE><<<grid, TC_THREADS, C::SMEM, a.stream>>>(
       tq, tk, tv, a.q_pos, a.kv_pos, static_cast<__nv_bfloat16*>(a.o), a.Sq, a.Skv, a.H,
-      a.KV, a.causal, a.window, a.scale, a.softcap);
+      a.KV, a.causal, a.window, a.scale, a.softcap, a.lse);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool LSE>
 int launch_simt(const Args& a) {
   constexpr int bytes = simt_smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_simt<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd_simt<D><<<grid, SIMT_THREADS, bytes, a.stream>>>(
+  flash_fwd_simt<D, LSE><<<grid, SIMT_THREADS, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.q_pos, a.kv_pos, static_cast<float*>(a.o),
       a.Sq, a.Skv, a.H, a.KV, a.st[0], a.st[1], a.st[2], a.st[3], a.st[4],
-      a.st[5], a.st[6], a.st[7], a.st[8], a.causal, a.window, a.scale, a.softcap);
+      a.st[5], a.st[6], a.st[7], a.st[8], a.causal, a.window, a.scale, a.softcap, a.lse);
   return (int)cudaGetLastError();
+}
+
+template <bool LSE>
+int run(const Args& a, int D, int dtype) {
+  if (a.B <= 0 || a.Sq <= 0 || a.Skv <= 0 || a.KV <= 0 || a.H % a.KV != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == 64) return launch_simt<64, LSE>(a);
+  if (dtype == 0 && D == 128) return launch_simt<128, LSE>(a);
+  if (dtype == 1 && D == 64) return launch_wgmma<64, LSE>(a);
+  if (dtype == 1 && D == 128) return launch_wgmma<128, LSE>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -912,13 +944,18 @@ extern "C" int flash_attention_fwd(
     const int* kv_pos, void* o, int B, int Sq, int Skv, int H, int KV, int D,
     int dtype, const long long* strides, int causal, int window, float scale,
     float softcap, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0)
-    return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, q_pos, kv_pos, o, B, Sq, Skv, H, KV, strides,
+  const Args a{q, k, v, q_pos, kv_pos, o, nullptr, B, Sq, Skv, H, KV, strides,
                causal, window, scale, softcap, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0 && D == 64) return launch_simt<64>(a);
-  if (dtype == 0 && D == 128) return launch_simt<128>(a);
-  if (dtype == 1 && D == 64) return launch_wgmma<64>(a);
-  if (dtype == 1 && D == 128) return launch_wgmma<128>(a);
-  return (int)cudaErrorInvalidValue;
+  return run<false>(a, D, dtype);
+}
+
+// The same, and the per-row log-sum-exp into lse, (B, H, Sq) fp32.
+extern "C" int flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, const int* q_pos,
+    const int* kv_pos, void* o, float* lse, int B, int Sq, int Skv, int H, int KV,
+    int D, int dtype, const long long* strides, int causal, int window, float scale,
+    float softcap, void* stream) {
+  const Args a{q, k, v, q_pos, kv_pos, o, lse, B, Sq, Skv, H, KV, strides,
+               causal, window, scale, softcap, static_cast<cudaStream_t>(stream)};
+  return run<true>(a, D, dtype);
 }

@@ -29,6 +29,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         return ssd_ref(x, dt, A, Bm, Cm, chunk=cl)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        raise NotImplementedError("ssd: the SSD kernel has no backward yet (ROADMAP "
+                                  "Queue 1 item 16: SSD backward and mamba training)")
     G, N = Bm.shape[-2:]
     if L == 0:
         raise ValueError("ssd: empty sequence")

@@ -1,4 +1,4 @@
-"""Core layers: norms, MLPs, embeddings, rotary embeddings.
+"""Core layers: norms, MLPs, embeddings, rotary embeddings, the loss.
 
 Each layer is a (specs, apply) pair of plain functions over dicts of tensors,
 as in ``repro.models.layers``, with the same numerics: parameters are stored
@@ -31,8 +31,10 @@ def rmsnorm_specs(dim: int) -> dict:
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """fp32 RMSNorm cast back to ``x.dtype``: the Triton kernel on the card,
-    its plain version on the CPU."""
-    return rmsnorm_kernel(x, params["scale"], eps)
+    its plain version on the CPU. The scale is read in fp32 (a no-op for the
+    fp32 leaves; a bf16 cast of them, under ``grad_dtype="bfloat16"``, is
+    widened as the reference widens it)."""
+    return rmsnorm_kernel(x, params["scale"].float(), eps)
 
 
 # ---------------------------------------------------------------------------
@@ -128,3 +130,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss: chunked softmax cross-entropy (+ z-loss), stable in fp32
+# ---------------------------------------------------------------------------
+
+def softmax_xent_chunked(logits_fn, h: torch.Tensor, labels: torch.Tensor,
+                         weights: torch.Tensor, *, chunk: int = 1024,
+                         z_loss: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross entropy without materializing (B, S, V) fp32 logits at once.
+
+    ``logits_fn(h_chunk) -> (B, c, V)`` maps hidden states to logits (bf16
+    ok); the reduction is computed per sequence chunk in fp32, the ragged
+    remainder last, as the reference does. The logsumexp runs over every
+    column ``logits_fn`` returns, padded vocabulary included, as the
+    reference's does. Returns (sum_loss, sum_weight)."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+
+    def one(lo, hi):
+        logits = logits_fn(h[:, lo:hi]).float()                    # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)                      # (B, c)
+        ll = torch.gather(logits, -1, labels[:, lo:hi, None].long())[..., 0]
+        nll = lse - ll
+        if z_loss:
+            nll = nll + z_loss * torch.square(lse)
+        w = weights[:, lo:hi]
+        return torch.sum(nll * w), torch.sum(w)
+
+    loss = wsum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        l, w = one(i * chunk, (i + 1) * chunk)
+        loss, wsum = loss + l, wsum + w
+    if S > n * chunk:
+        l, w = one(n * chunk, S)
+        loss, wsum = loss + l, wsum + w
+    return loss, wsum

@@ -10,7 +10,9 @@ packages by a plain mapping (:mod:`repro_torch.bridge`).
 
 The port implements the ``attn`` and ``mamba`` mixers and the ``dense`` and
 ``none`` MLPs, in any pattern; MoE, MLA and cross-attention raise
-``NotImplementedError`` naming their ROADMAP item.
+``NotImplementedError`` naming their ROADMAP item. Training (:meth:`Model.loss`
+under autograd) runs through the flash-attention and RMSNorm backward kernels
+on the card; the SSD kernel has no backward yet and raises there.
 """
 from __future__ import annotations
 
@@ -18,9 +20,10 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
@@ -205,16 +208,32 @@ class Model(nn.Module):
     """The model with its parameters, on one device.
 
     Parameters are fp32 ``nn.Parameter``s in the JAX package's tree layout.
-    The compute-dtype copies the layers use are made once, when parameters
-    are set (``__init__``, :meth:`load_params`), not at every use: the
-    numbers are identical and a decode step then reads bf16 weights only.
-    The leaves the reference reads in fp32 (``_FP32_LEAVES``) stay fp32.
+    Serving (:meth:`forward_logits`, :meth:`prefill`, :meth:`decode_step`)
+    reads compute-dtype copies of them, made once and kept, not at every use:
+    the numbers are identical and a decode step then reads bf16 weights only.
+    The leaves the reference reads in fp32 (``_FP32_LEAVES``) stay fp32. The
+    copies are made at the first serving call after the parameters were set
+    or changed: :meth:`load_params` and :meth:`params_changed` (which the
+    train step calls after its in-place update) drop them.
+
+    Training (:meth:`loss`) takes the parameter tree as an argument, as the
+    JAX package's does, and casts each leaf where it is used, so autograd
+    differentiates the tree it is given. ``parallel.remat`` ``"full"``
+    recomputes each repeat of a segment's layer pattern in the backward pass
+    (``torch.utils.checkpoint``); ``"dots"`` does the same: the port keeps no
+    matmul outputs selectively, which changes memory and time, not numbers.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, parallel: Optional[ParallelConfig] = None, *,
+                 device=None, seed: int = 0):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        self.parallel = parallel if parallel is not None else ParallelConfig()
+        if self.parallel.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat {self.parallel.remat!r}")
+        if self.parallel.grad_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"grad_dtype {self.parallel.grad_dtype!r}")
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
         self.plans = layer_plans(cfg)
@@ -240,33 +259,62 @@ class Model(nn.Module):
         tree = tree_map(lambda path, s: check(path, s, flat["/".join(path)]),
                         self.specs())
         self.params = _as_module(tree)
-        self._compute = tree_map(
-            lambda path, t: t if path[-1] in _FP32_LEAVES else t.to(self.dtype),
-            _as_tree(self.params, tree),
-            is_leaf=_is_tensor)
+        self._compute_tree = None
+
+    def params_changed(self) -> None:
+        """Drop the serving copies: the parameters were changed in place.
+        The next serving call casts them anew."""
+        self._compute_tree = None
+
+    @property
+    def _compute(self) -> Params:
+        if self._compute_tree is None:
+            self._compute_tree = tree_map(
+                lambda path, t: t if path[-1] in _FP32_LEAVES else t.to(self.dtype),
+                self.params_tree(), is_leaf=_is_tensor)
+        return self._compute_tree
 
     def params_tree(self) -> Params:
-        """The fp32 parameters as nested dicts/lists/tuples of tensors."""
+        """The fp32 parameters as nested dicts/lists/tuples of tensors (the
+        model's own: an in-place change to them changes the model)."""
         return _as_tree(self.params, self.specs())
 
     # -- stacks -------------------------------------------------------------
 
-    def _run_segments(self, h, *, positions, mode, caches=None,
+    def _run_segments(self, p, h, *, positions, mode, caches=None,
                       cur_index=None, max_cache_len=0):
-        """Apply all segments; returns (h, new_caches).
+        """Apply all segments of the parameter tree ``p``; returns (h,
+        new_caches).
 
-        A layer's cache is a dict keyed as the reference keys it
-        (``{"kv": {...}}`` or ``{"ssm": {...}}``), each leaf stacked over the
-        segment's repeats. Decode hands each layer views of its slice of the
-        stack, which the layer updates in place."""
-        cfg, p = self.cfg, self._compute
+        Each stacked leaf is unbound once into its repeats: autograd then
+        stacks their gradients in one operation (indexing each repeat would
+        add a zero-filled full-size gradient per repeat). A layer's cache is
+        a dict keyed as the reference keys it (``{"kv": {...}}`` or
+        ``{"ssm": {...}}``), each leaf stacked over the segment's repeats.
+        Decode hands each layer views of its slice of the stack, which the
+        layer updates in place. In training under autograd with remat on,
+        each repeat of the pattern is a ``torch.utils.checkpoint`` region."""
+        cfg = self.cfg
+        remat = (mode == "train" and self.parallel.remat != "none"
+                 and torch.is_grad_enabled())
         new_caches = []
         for si, seg in enumerate(self.segments):
             built = [[] for _ in seg.pattern]     # prefill: one cache per repeat
+            layers = [tree_map(lambda _, t: t.unbind(0), lp, is_leaf=_is_tensor)
+                      for lp in p["segments"][si]]
             for r in range(seg.repeat):
+                if remat:
+                    def body(hh, _seg=seg, _layers=layers, _r=r):
+                        for plan, lp in zip(_seg.pattern, _layers):
+                            hh, _ = _apply_layer(
+                                cfg, plan, tree_map(lambda _, t: t[_r], lp, is_leaf=_is_tuple),
+                                hh, positions=positions, dtype=self.dtype, mode=mode,
+                                cache=None, cur_index=None)
+                        return hh
+                    h = torch.utils.checkpoint.checkpoint(body, h, use_reentrant=False)
+                    continue
                 for li, plan in enumerate(seg.pattern):
-                    lp = tree_map(lambda _, t: t[r], p["segments"][si][li],
-                                  is_leaf=_is_tensor)
+                    lp = tree_map(lambda _, t: t[r], layers[li], is_leaf=_is_tuple)
                     c = None
                     if caches is not None:
                         c = tree_map(lambda _, t: t[r], caches[si][li],
@@ -285,23 +333,50 @@ class Model(nn.Module):
     # -- public entry points ------------------------------------------------
 
     def hidden_states(self, batch: dict, mode: str = "train",
-                      max_cache_len: int = 0):
-        """Full-sequence forward to final hidden states.
+                      max_cache_len: int = 0, params: Optional[Params] = None):
+        """Full-sequence forward to final hidden states, with ``params`` (a
+        tree shaped like :meth:`specs`) or the serving copies.
 
         Returns (h, caches); caches is None unless ``mode == "prefill"``."""
         cfg = self.cfg
+        p = self._compute if params is None else params
         tok = batch["tokens"]
-        h = L.embed(self._compute["embed"], tok, self.dtype, cfg.d_model)
+        h = L.embed(p["embed"], tok, self.dtype, cfg.d_model)
         positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-        h, caches = self._run_segments(h, positions=positions, mode=mode,
+        h, caches = self._run_segments(p, h, positions=positions, mode=mode,
                                        max_cache_len=max_cache_len)
-        h = L.rmsnorm(self._compute["final_norm"], h, cfg.norm_eps)
+        h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
         return h, (caches if mode == "prefill" else None)
 
+    def logits_fn(self, params: Optional[Params] = None):
+        p = self._compute if params is None else params
+
+        def fn(h: torch.Tensor) -> torch.Tensor:
+            return L.lm_head(p.get("lm_head"), p["embed"], h,
+                             self.cfg.tie_embeddings, self.dtype)
+        return fn
+
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        p = self._compute
-        return L.lm_head(p.get("lm_head"), p["embed"], h,
-                         self.cfg.tie_embeddings, self.dtype)
+        return self.logits_fn()(h)
+
+    def loss(self, params: Params, batch: dict):
+        """Mean cross-entropy (+ z-loss; MoE aux is 0, the port has no MoE
+        yet). Returns (loss, metrics) as the JAX package's ``Model.loss``
+        does. The z-loss weight is the reference's ``getattr(self, "z_loss",
+        1e-4)``, which ignores ``TrainConfig.z_loss`` (kept, so that the
+        numbers match; ROADMAP Queue 3)."""
+        h, _ = self.hidden_states(batch, mode="train", params=params)
+        weights = batch.get("weights")
+        if weights is None:
+            weights = torch.ones(batch["tokens"].shape, dtype=torch.float32,
+                                 device=h.device)
+        z = getattr(self, "z_loss", 1e-4)
+        total, wsum = L.softmax_xent_chunked(self.logits_fn(params), h, batch["labels"],
+                                             weights, z_loss=z)
+        xent = total / torch.clamp(wsum, min=1.0)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        loss = xent + aux
+        return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": wsum}
 
     @torch.no_grad()
     def forward_logits(self, batch: dict) -> torch.Tensor:
@@ -326,7 +401,7 @@ class Model(nn.Module):
         Returns (logits (B, V), caches); the caches are updated in place."""
         cfg = self.cfg
         h = L.embed(self._compute["embed"], tokens[:, None], self.dtype, cfg.d_model)
-        h, caches = self._run_segments(h, positions=None, mode="decode",
+        h, caches = self._run_segments(self._compute, h, positions=None, mode="decode",
                                        caches=caches, cur_index=int(cur_index))
         h = L.rmsnorm(self._compute["final_norm"], h, cfg.norm_eps)
         return self.logits(h)[:, 0], caches
@@ -354,6 +429,11 @@ class Model(nn.Module):
 
 def _is_tensor(x: Any) -> bool:
     return isinstance(x, torch.Tensor)
+
+
+def _is_tuple(x: Any) -> bool:
+    """A leaf unbound into its repeats (a tuple of tensors)."""
+    return isinstance(x, tuple) and len(x) > 0 and isinstance(x[0], torch.Tensor)
 
 
 def _stack(trees: list) -> Any:

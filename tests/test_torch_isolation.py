@@ -1,7 +1,8 @@
-"""The port stands alone: every module of ``repro_torch`` imports with
-``jax`` and ``repro`` made unimportable, without pulling in ``triton`` or
-building a kernel; and its copies of the configs and layer plans have not
-drifted from the JAX package's."""
+"""The port stands alone: every module of ``repro_torch`` (the training
+modules ``repro_torch.train`` and ``repro_torch.data`` among them) imports
+with ``jax`` and ``repro`` made unimportable, without pulling in ``triton``
+or building a kernel; and its copies of the configs (model, parallel, train,
+data) and layer plans have not drifted from the JAX package's."""
 import dataclasses
 import os
 import subprocess
@@ -12,9 +13,11 @@ from pathlib import Path
 import pytest
 
 from repro import config as jax_config
+from repro import data as jax_data
 from repro.models.model import layer_plans as jax_layer_plans
 from repro.models.model import segment_plans as jax_segment_plans
 from repro_torch import config as tcfg
+from repro_torch import data as tdata
 from repro_torch.models.model import layer_plans, segment_plans
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -35,6 +38,9 @@ _PROBE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     assert "triton" not in sys.modules, "importing the port pulled in triton"
+    for name in ("repro_torch.data", "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step"):
+        assert name in names, name
     print(len(names), "modules")
 """)
 
@@ -44,7 +50,7 @@ def test_every_module_imports_without_jax_or_repro(tmp_path):
     res = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 25
+    assert int(res.stdout.split()[0]) >= 29
     assert not list(tmp_path.iterdir())          # nothing built or written
 
 
@@ -75,9 +81,15 @@ def _fields(cls) -> list:
 
 
 @pytest.mark.parametrize("name", ["AttentionConfig", "MoEConfig", "SSMConfig",
-                                  "ModelConfig"])
+                                  "ModelConfig", "ParallelConfig", "TrainConfig",
+                                  "data.DataConfig"])
 def test_dataclass_fields_and_defaults_equal_jax(name):
-    assert _fields(getattr(tcfg, name)) == _fields(getattr(jax_config, name))
+    if name.startswith("data."):
+        ours, theirs = tdata, jax_data
+        name = name[5:]
+    else:
+        ours, theirs = tcfg, jax_config
+    assert _fields(getattr(ours, name)) == _fields(getattr(theirs, name))
 
 
 @pytest.mark.parametrize("smoke", [False, True])
