@@ -3,8 +3,9 @@
 Each source under a kernel's ``csrc/`` is compiled on its own by ``nvcc`` into
 a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), placed in ``build/kernels/`` at the root of the checkout and
-named by the hash of the source and the flags: a changed source builds anew,
-an unchanged one is loaded as it is. :func:`build_all` starts one ``nvcc``
+named by the hash of the source, the headers (``*.cuh``) beside it and the
+flags: a changed source or header builds anew, an unchanged one is loaded as
+it is. :func:`build_all` starts one ``nvcc``
 per source, all together. ``nvcc`` runs with ``-Xptxas -v``; what it prints
 (registers, shared memory and spills per kernel) is kept beside the library
 and read back by :func:`build_log`.
@@ -47,7 +48,11 @@ def _nvcc() -> str:
 
 
 def library(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):    # what the source may include
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

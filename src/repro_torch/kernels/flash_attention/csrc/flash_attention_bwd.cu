@@ -19,58 +19,88 @@
 // it does five products of length D (S, dP, dV, dK, dQ; S and dP twice, once
 // in each of the two kernels below), ~14 D operations, against a few bytes
 // per row: far above the ~295 operations per byte where the card stops being
-// memory-bound.
+// memory-bound. So the design is the forward's (flash_attention.cu): keep
+// the tensor cores fed from a TMA ring.
 //
 // The FlashAttention-2 form, three kernels, no atomics, so every output
 // element is summed by one thread in a fixed order and the result is the same
 // bits from call to call:
 //  * flash_bwd_delta: delta per (batch, head, row), one warp per row.
-//  * dK/dV: one block per (kv tile of 64 rows, kv head, batch). K and V stay
-//    in shared memory; the block walks the q tiles that can see its kv tile
-//    and, for each, the G = H / KV query heads of its kv head, so dK and dV
-//    are summed over the whole group in registers and written once.
-//  * dQ: one block per (q tile of 64 rows, head, batch), walking the kv tiles
-//    its rows can see; dQ is summed in registers and written once.
-// Which tiles are seen is decided from positions (the tile's least and
-// greatest valid kv position against each row's visible range), by all
-// threads at once before the walk, so that the next tile's loads can be
-// started while the current one is computed (cp.async, two stages); its
-// per-row values (lse, delta, positions) are loaded into registers a tile
-// ahead too and stored to shared memory after the current tile's products.
+//  * flash_bwd_dkdv_wgmma: one block per (kv tile of 128 rows, kv head,
+//    batch), two consumer warpgroups of 64 kv rows each and a producer
+//    warpgroup of which one warp works (384 threads, one block per SM). K
+//    and V of the tile come in once by TMA. The producer walks the q tiles
+//    of BQ rows that can see the tile and, for each, the G = H / KV query
+//    heads of the kv head; per such item it streams Q and dO (TMA) and the
+//    rows' lse, delta and visible ranges (plain loads, issued before it
+//    waits for a free stage) through a ring of STAGES stages with a full and
+//    an empty mbarrier each, as the forward does. Per item each warpgroup
+//    computes S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in
+//    shared memory), P^T and dS^T in registers, then dV += P^T dO and dK +=
+//    dS^T Q (wgmma, A from registers: the S^T and dP^T accumulators rounded
+//    to bf16 are the A fragments; B = dO, Q MN-major with the transpose
+//    bit). dK and dV are summed over the whole group in registers and
+//    written once.
+//  * flash_bwd_dq_wgmma: one block per (q tile of 128 rows, head, batch),
+//    the forward's structure plus one product: Q and dO once by TMA, the K/V
+//    tiles its rows can see through the ring, classed by the producer as the
+//    forward classes them (CLS_PARTIAL / CLS_FULL / CLS_END: an empty tile
+//    is neither loaded nor computed, a full one skips the per-element mask).
+//    Per tile S = Q K^T and dP = dO V^T (wgmma ss), dS in registers, dQ +=
+//    dS K (wgmma rs, K MN-major). lse, delta and the visible range of the
+//    thread's two rows stay in registers.
+// Which tiles a block sees is found by its producer from positions: a scan
+// of SCAN tiles' positions with LOADS loads in flight at once gives a bit
+// per tile, and only the marked tiles are loaded, classed and computed.
 //
-// bf16 runs the five products on the tensor cores with mma.sync m16n8k16
-// (fp32 accumulators). Each warp owns 16 rows of the block's own tile. S
-// (or S^T) and dP come out in the accumulator layout, which, rounded to bf16,
-// is the A fragment of the next product (P for dV, dS for dK and dQ), so they
-// never leave registers; the other operand is read with ldmatrix (.trans
-// where it is stored row-major along the product's n) from 16-byte-chunk
-// XOR-swizzled shared memory, conflict free. P and dS are rounded to bf16 for
-// those products as the forward rounds P, and so does FlashAttention-2.
+// Keeping the tensor cores busy while the CUDA cores compute P and dS (the
+// exp2 of every element is the larger part):
+//  * S and dP are committed as two wgmma groups, and P is computed as soon
+//    as S is in, while the tensor cores run dP; then dS = P (dP - delta).
+//    Under a soft-cap dS needs tanh of the raw score, which P replaces, so
+//    there both are computed once both are in. The soft-cap is a template
+//    flag (CAP) of both kernels, so that neither pays for the other's path.
+//  * The products of an item are issued after the next item's S and dP, so
+//    they run on the tensor cores while that item's P and dS are computed;
+//    the item's stage goes back to the producer once they are done. (Not
+//    for dK/dV at D = 128: there the previous item's fragments and the next
+//    item's S^T, dP^T do not fit in registers beside dK and dV, so each
+//    item's products are waited for before the next item.)
+//  * The two consumer warpgroups take turns to issue their wgmma (named
+//    barriers, FlashAttention-3's ping-pong, as the forward), so that one's
+//    P and dS tend to run while the other's products do.
+// At B=4 S=2048 H=15 KV=5 D=64 bf16 causal the three kernels read 0.36 ms
+// on an NVIDIA H100 80GB HBM3 at 700 W, against 0.72 ms for the mma.sync
+// design they replace (scripts/compare_kernels.py; PERF.md). The first item
+// is peeled off the loop and the warp role and tile class are read through
+// __shfl_sync, so that ptxas can pair every wgmma with its wait (its notes
+// C7515, C7520). P and dS are rounded to bf16 for the dV, dK, dQ products,
+// as the forward rounds P and as FlashAttention-2/3 do.
+//
+// Tile sizes and registers. A consumer thread of dK/dV holds dK and dV (D/2
+// fp32 each), S^T and dP^T (BQ/2 each) and their bf16 A fragments (BQ/4
+// each): BQ = 64 q rows per item for D = 64 (160 values), and a 32-row q
+// item for D = 128 (176). ptxas gives a thread of a 384-thread block 168
+// registers, too few for that, so the blocks take FlashAttention-3's
+// setmaxnreg split: the producer warpgroup drops to 56 registers and the
+// consumer warpgroups rise to 224. dQ holds dQ (D/2), S and dP of a 64-row
+// kv tile (32 each) and dS's fragments (16); 128-row kv tiles spilled.
+// Launch order: the heaviest tiles under a causal mask first, the low kv
+// tiles (dK/dV: the tile index is the grid's slowest dimension) and the high
+// q tiles (dQ, as the forward).
+//
+// Shared memory (1024-byte aligned, the 128-byte swizzle's period): dK/dV
+// holds K and V (128 x D bf16 each) and STAGES x (Q, dO) of BQ x D: D = 64
+// 32 + 4 x 16 = 96 KB, D = 128 64 + 4 x 16 = 128 KB. dQ holds Q and dO
+// (128 x D each) and STAGES x (K, V) of 64 x D: 96 KB and 192 KB.
+//
 // fp32 runs plain CUDA-core kernels (fp32 products keep fp32 precision): for
-// checks, not for speed. wgmma/TMA is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
+// checks, not for speed.
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
-
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr int TILE = 64;        // rows of the block's own tile (4 warps x 16)
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the kv positions a query at position qp sees, as [lo, hi] (empty when
-// lo > hi): kv_pos >= 0; causal kv_pos <= qp; window qp - kv_pos < window
-__device__ __forceinline__ int2 visible_range(int qp, int causal, int window) {
-  long long lo = 0;
-  if (window > 0) lo = max(lo, (long long)qp - (long long)window + 1);
-  return make_int2((int)min(lo, (long long)INT_MAX), causal ? qp : INT_MAX);
-}
 
 // range of a row that does not exist: sees nothing
 __device__ __forceinline__ int2 no_range() { return make_int2(INT_MAX, INT_MIN); }
@@ -85,42 +115,6 @@ __device__ __forceinline__ int2 block_minmax(int v, bool has, int* s_red) {
   const int2 r = make_int2(s_red[0], s_red[1]);
   __syncthreads();
   return r;
-}
-
-// The tiles of `tile` rows of [0, n) in which `seen(row)` holds for some
-// row, in order, into `list`; returns how many. Every thread tests rows
-// threadIdx.x, + THREADS, ... (their loads all in flight), marking the
-// tile's flag; warp 0 compacts the flags with ballots. `flags` and `list`
-// hold ceil(n / tile) ints each. Ends with a barrier.
-template <typename F>
-__device__ __forceinline__ int visible_tiles(int n, int tile, int* flags, int* list,
-                                             int* s_count, F seen) {
-  const int nt = (n + tile - 1) / tile;
-  for (int i = threadIdx.x; i < nt; i += blockDim.x) flags[i] = 0;
-  __syncthreads();
-  for (int r = threadIdx.x; r < n; r += blockDim.x)
-    if (seen(r)) flags[r / tile] = 1;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int count = 0;
-    for (int base = 0; base < nt; base += 32) {
-      const int f = base + lane < nt && flags[base + lane];
-      const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) list[count + __popc(m & ((1u << lane) - 1u))] = base + lane;
-      count += __popc(m);
-    }
-    if (lane == 0) *s_count = count;
-  }
-  __syncthreads();
-  return *s_count;
-}
-
-// 2^x on the special-function unit (relative error ~2^-22)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -155,442 +149,700 @@ __global__ void __launch_bounds__(256) flash_bwd_delta(const T* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync
+// bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+constexpr int OWN = 128;            // rows of the block's own tile: 2 warpgroups x 64
+constexpr int TC_THREADS = 384;     // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int CONSUMER_WARPS = 8;
+// registers per thread after the split (at launch 168 each, 65,536 / 384
+// rounded down): the producer warpgroup gives its registers up so that the
+// consumers can hold S^T, dP^T, their fragments, dK and dV
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+static_assert(PRODUCER_REGS * 128 + 2 * CONSUMER_REGS * 128 <= 168 * TC_THREADS,
+              "the register split must fit what the block holds at launch");
+constexpr int STAGES = 4;           // ring depth
+constexpr int SCAN = 32;            // tiles whose visibility the producer finds in one pass
+constexpr int LOADS = 8;            // position loads it keeps in flight
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A tile of R rows x D bf16 in shared memory, each row D / 8 chunks of 16
-// bytes; chunk c of row r sits at chunk c ^ (r & 7), so the 8 rows an
-// ldmatrix reads at one column land in 8 different bank groups.
 template <int D>
-__device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
-  return base + (uint32_t)((r * (D / 8) + ((c >> 3) ^ (r & 7))) * 16);
+struct BwdCfg {
+  static constexpr int CB = D / 64;                // 64-column (128-byte) blocks
+  static constexpr int BQ = D == 64 ? 64 : 32;     // dK/dV: q rows per item
+  // dK/dV: an item's products overlap the next item's P, dS (registers)
+  static constexpr bool OVERLAP = D == 64;
+  static constexpr int BKV = 64;                   // dQ: kv rows per tile
+  static constexpr int OWN_BYTES = OWN * D * 2;    // K or V (dK/dV); Q or dO (dQ)
+  static constexpr int QT_BYTES = BQ * D * 2;      // one Q or dO tile of an item
+  static constexpr int KT_BYTES = BKV * D * 2;     // one K or V tile
+  static constexpr int DKDV_SMEM = 1024 + 2 * OWN_BYTES + STAGES * 2 * QT_BYTES;
+  static constexpr int DQ_SMEM = 1024 + 2 * OWN_BYTES + STAGES * 2 * KT_BYTES;
+};
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
 }
 
-// cp.async of rows [row0, row0 + R) of one head of a dense (B, S, heads, D)
-// tensor into a swizzled tile; rows at or past S are zero-filled
-template <int D, int R>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat16* base,
-                                          int row0, int S, long long row_stride) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < R * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = row0 + r < S;
-    const __nv_bfloat16* src = ok ? base + (long long)(row0 + r) * row_stride + c * 8 : base;
-    cp_async16(tile + (r * CH + (c ^ (r & 7))) * 8, src, ok);
-  }
-}
-
-// acc (16 x N) += A (16 rows of tile a from row ar, D columns) * B^T, where
-// B is N rows (from row 0) x D columns of tile b: both read with ldmatrix
-template <int D, int N>
-__device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], uint32_t a, int ar,
-                                         uint32_t b) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, tile_addr<D>(a, ar + (lane & 15), kk * 16 + (lane >> 4) * 8));
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, tile_addr<D>(b, np * 16 + (lane & 7) + (lane >> 4) * 8,
-                               kk * 16 + ((lane >> 3) & 1) * 8));
-      mma16816(acc[2 * np], af, bf[0], bf[1]);
-      mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x D) += A (16 x K, the bf16 rounding of the accumulators x, as
-// the A fragment) * B, where B is K rows x D columns of tile b (read with
-// ldmatrix.trans)
-template <int D, int K>
-__device__ __forceinline__ void gemm_xb(float (&acc)[D / 8][4], const float (&x)[K / 8][4],
-                                        uint32_t b) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, tile_addr<D>(b, kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                 dp * 16 + (lane >> 4) * 8));
-      mma16816(acc[2 * dp], af, bf[0], bf[1]);
-      mma16816(acc[2 * dp + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// Per element of a score accumulator: P and dS from S (raw q.k), dP, the
-// element's lse (log2 units), delta and visibility. Returns P; dS in *ds.
+// P and dS of one score element from S (raw q.k), dP, the row's lse (log2
+// units) and delta; `ok` false masks it (P = 0, dS = 0)
 struct Score {
-  float ks, cap_in, cap_out, softcap;
-  __device__ __forceinline__ float operator()(float s, float dp, float lse2, float delta,
-                                              bool ok, float* ds) const {
-    float sv, dfac = 1.f;
-    if (softcap > 0.f) {
-      const float t = tanhf(s * cap_in);
-      sv = t * cap_out;
-      dfac = 1.f - t * t;
-    } else {
-      sv = s * ks;
-    }
-    const float p = ok ? ex2(sv - lse2) : 0.f;
-    *ds = p * (dp - delta) * dfac;
-    return p;
+  float ks, cap_in, cap_out;
+  // without a soft-cap: P from S alone (dS is then P (dP - delta))
+  __device__ __forceinline__ float p(float s, float lse2, bool ok) const {
+    return ok ? ex2(s * ks - lse2) : 0.f;
+  }
+  // under a soft-cap: s becomes P and dp becomes dS, which needs tanh
+  __device__ __forceinline__ void capped(float& s, float& dp, float lse2, float dl,
+                                         bool ok) const {
+    const float th = tanhf(s * cap_in);
+    const float p = ok ? ex2(th * cap_out - lse2) : 0.f;
+    dp = p * (dp - dl) * (1.f - th * th);
+    s = p;
   }
 };
 
 __device__ __forceinline__ Score make_score(float scale, float softcap) {
   Score f;
-  f.softcap = softcap;
   f.ks = scale * LOG2E;
   f.cap_in = softcap > 0.f ? scale / softcap : 0.f;
   f.cap_out = softcap * LOG2E;
   return f;
 }
 
-template <int D>
-struct BwdCfg {
-  static constexpr int BN = D == 64 ? 64 : 32;   // q rows per step of dK/dV (registers)
-  static constexpr int TILE_BYTES = TILE * D * 2;
-  static constexpr int N_BYTES = BN * D * 2;
-  // dK/dV: K, V, then two stages of (Q, dO); then the visible-tile flags
-  // and list, 2 x ceil(Sq / BN) ints (dQ: ceil(Skv / TILE))
-  static constexpr int DKDV_SMEM = 2 * TILE_BYTES + 4 * N_BYTES;
-  // dQ: Q, dO, then two stages of (K, V) of TILE rows
-  static constexpr int DQ_SMEM = 6 * TILE_BYTES;
-};
+// the accumulators x (64 x N per warpgroup) rounded to bf16 as the A
+// fragments of the N/16 k-steps of a product over N (see pack_p in the
+// forward)
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
 
-// one block per (kv tile, kv head, batch); see the header
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+// X = A B^T over D for a warpgroup: A its 64 rows at a_addr (a tile of
+// a_rows rows), B the n_rows x D tile at b_addr, both K-major in 64-column
+// blocks; the first k-step overwrites x (no other instruction may write an
+// accumulator inside the pipeline: ptxas C7515)
+template <int D, int N>
+__device__ __forceinline__ void issue_abt(float (&x)[N / 2], uint32_t a_addr, int a_rows,
+                                          uint32_t b_addr) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint32_t col = (k & 3) * 32;
+    wgmma_ss<N>(x, sw128_desc(a_addr + (k >> 2) * a_rows * 128 + col, 16),
+                sw128_desc(b_addr + (k >> 2) * N * 128 + col, 16), k > 0);
+  }
+}
+
+// acc (64 x D) += A B over K rows: A the bf16 fragments a, B the K x D tile
+// at b_addr (MN-major: D is contiguous; 64-column blocks K * 128 bytes apart)
+template <int D, int K>
+__device__ __forceinline__ void issue_ab(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<D>(acc, a[kk], sw128_desc(b_addr + kk * 16 * 128, K * 128));
+}
+
+// one block per (kv tile of 128 rows, kv head, batch); see the header
+template <int D, bool CAP>
+__global__ void __launch_bounds__(TC_THREADS, 1) flash_bwd_dkdv_wgmma(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
     int H, int KV, int causal, int window, float scale, float softcap) {
   using C = BwdCfg<D>;
-  constexpr int BN = C::BN;
-  extern __shared__ __align__(128) uint8_t smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + C::TILE_BYTES);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + 2 * C::TILE_BYTES);  // [2]
-  __nv_bfloat16* sdO = sQ + 2 * BN * D;                                            // [2]
-  const int nqt = (Sq + BN - 1) / BN;
-  int* s_tiles = reinterpret_cast<int*>(smem + C::DKDV_SMEM);  // visible q tiles
-  int* s_flags = s_tiles + nqt;
-  __shared__ int s_kp[TILE];
-  __shared__ float s_lse2[2][BN], s_delta[2][BN];
-  __shared__ int2 s_rng[2][BN];
-  __shared__ int s_red[2], s_count;
+  constexpr int BQ = C::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[STAGES], empty_bar[STAGES], kv_bar;
+  __shared__ __align__(16) float s_lse2[STAGES][BQ];
+  __shared__ __align__(16) float s_dl[STAGES][BQ];
+  __shared__ __align__(16) int2 s_rng[STAGES][BQ];
+  __shared__ int s_cls[STAGES];
+  __shared__ int s_kp[OWN];                      // the tile's kv positions
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * TILE, kvh = blockIdx.y, b = blockIdx.z;
+  uint8_t* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sV = sK + C::OWN_BYTES;               // [CB][OWN][64]
+  uint8_t* sQ = sV + C::OWN_BYTES;               // [STAGES][CB][BQ][64]
+  uint8_t* sdO = sQ + STAGES * C::QT_BYTES;      // [STAGES][CB][BQ][64]
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * OWN;               // low kv tiles (heaviest) first
   const int G = H / KV;
-  const long long q_rs = (long long)H * D, kv_rs = (long long)KV * D;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);   // see the forward
+  const int lane = threadIdx.x & 31;
 
-  load_tile<D, TILE>(sK, k + ((long long)b * Skv * KV + kvh) * D, k0, Skv, kv_rs);
-  load_tile<D, TILE>(sV, v + ((long long)b * Skv * KV + kvh) * D, k0, Skv, kv_rs);
-  cp_async_commit();
-
-  int kp = -1;
-  if (tid < TILE) {
-    kp = k0 + tid < Skv ? kv_pos[(long long)b * Skv + k0 + tid] : -1;
-    s_kp[tid] = kp;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], CONSUMER_WARPS);
+    }
+    mbar_init(&kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int2 kr = block_minmax(kp, kp >= 0, s_red);
+  __syncthreads();
 
-  // the q tiles in which some row sees some slot of this kv tile
-  const int n_vis = visible_tiles(Sq, BN, s_flags, s_tiles, &s_count, [&](int row) {
-    const int2 r = visible_range(q_pos[(long long)b * Sq + row], causal, window);
-    return kr.x <= kr.y && r.x <= r.y && r.x <= kr.y && r.y >= kr.x;
-  });
-
-  const int n_items = n_vis * G;      // (q tile, head of the group) pairs
-  auto fetch = [&](int item, int st) {
-    const int row0 = s_tiles[item / G] * BN, h = kvh * G + item % G;
-    const long long head = ((long long)b * Sq * H + h) * D;
-    load_tile<D, BN>(sQ + st * BN * D, q + head, row0, Sq, q_rs);
-    load_tile<D, BN>(sdO + st * BN * D, dout + head, row0, Sq, q_rs);
-    cp_async_commit();
-  };
-  // an item's per-row values (lse, delta, position), loaded into registers
-  // one item ahead and stored to shared memory only after the current
-  // item's products, so that the loads' latency hides behind them
-  float n_lse = INFINITY, n_dl = 0.f;
-  int n_qp = 0;
-  bool n_in = false;
-  auto load_rows = [&](int item) {
-    const int row = s_tiles[item / G] * BN + tid, h = kvh * G + item % G;
-    n_in = tid < BN && row < Sq;
-    if (n_in) {
-      const long long i = ((long long)b * H + h) * Sq + row;
-      n_lse = lse[i];
-      n_dl = delta[i];
-      n_qp = q_pos[(long long)b * Sq + row];
-    }
-  };
-  auto store_rows = [&](int st) {
-    if (tid < BN) {
-      s_lse2[st][tid] = n_in ? n_lse * LOG2E : INFINITY;
-      s_delta[st][tid] = n_in ? n_dl : 0.f;
-      s_rng[st][tid] = n_in ? visible_range(n_qp, causal, window) : no_range();
-    }
-  };
-
-  float dK[D / 8][4], dV[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dK[i][e] = dV[i][e] = 0.f;
-
-  const Score score = make_score(scale, softcap);
-  const int kp_lo = s_kp[warp * 16 + g], kp_hi = s_kp[warp * 16 + g + 8];
-  const uint32_t aK = smem_u32(sK), aV = smem_u32(sV);
-
-  if (n_items > 0) {
-    fetch(0, 0);
-    load_rows(0);
-    store_rows(0);
-  }
-  for (int it = 0; it < n_items; ++it) {
-    const int st = it & 1;
-    const bool more = it + 1 < n_items;
-    if (more) {
-      fetch(it + 1, st ^ 1);
-      load_rows(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t aQ = smem_u32(sQ + st * BN * D), adO = smem_u32(sdO + st * BN * D);
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    gemm_abt<D, BN>(s, aK, warp * 16, aQ);     // S^T = K Q^T
-    gemm_abt<D, BN>(dp, aV, warp * 16, adO);   // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);   // q row of the tile
-        const int kpe = e < 2 ? kp_lo : kp_hi;
-        const int2 r = s_rng[st][col];
-        float ds;
-        s[n][e] = score(s[n][e], dp[n][e], s_lse2[st][col], s_delta[st][col],
-                        kpe >= r.x && kpe <= r.y, &ds);
-        dp[n][e] = ds;
+  // one if-else for the roles, never rejoined, so that ptxas applies each
+  // side's register count (its note C7508 otherwise)
+  if (warp >= CONSUMER_WARPS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > CONSUMER_WARPS) return;           // one producer warp works
+    // ---- producer warp: K, V once; (Q, dO, lse, delta, ranges) per item ----
+    int kmin = INT_MAX, kmax = INT_MIN, neg = 0;
+    for (int j = lane; j < OWN; j += 32) {
+      const int p = k0 + j < Skv ? kv_pos[(long long)b * Skv + k0 + j] : -1;
+      if (p < 0) {
+        neg = 1;
+      } else {
+        kmin = min(kmin, p);
+        kmax = max(kmax, p);
       }
     }
-    gemm_xb<D, BN>(dV, s, adO);                 // dV += P^T dO
-    gemm_xb<D, BN>(dK, dp, aQ);                 // dK += dS^T Q
-    if (more) store_rows(st ^ 1);   // last read by item it - 1, before this barrier
-    __syncthreads();                            // stage st is free again
-  }
-  if (n_items == 0) cp_async_wait<0>();
+    kmin = warp_min(kmin);
+    kmax = warp_max(kmax);
+    neg = __any_sync(0xffffffffu, neg);
+    if (lane == 0) {
+      mbar_expect_tx(&kv_bar, 2 * C::OWN_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < C::CB; ++cb) {
+        tma_load_4d(sK + cb * OWN * 128, &tm_k, &kv_bar, cb * 64, kvh, k0, b);
+        tma_load_4d(sV + cb * OWN * 128, &tm_v, &kv_bar, cb * 64, kvh, k0, b);
+      }
+    }
+    const int* qpos = q_pos + (long long)b * Sq;     // this batch's rows
+    int stage = 0;
+    uint32_t phase = 0;
+    // SCAN q tiles at a time: a bit per tile in which some row's visible
+    // range meets [kmin, kmax], from the rows' positions, LOADS in flight at
+    // once
+    for (int base = 0; kmax >= 0 && base * BQ < Sq; base += SCAN) {
+      uint32_t tiles = 0;
+      for (int i0 = 0; i0 < SCAN * BQ / 32; i0 += LOADS) {   // 32-row groups
+        int qp[LOADS];
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i) {
+          const int row = base * BQ + 32 * (i0 + i) + lane;
+          qp[i] = row < Sq ? qpos[row] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i) {
+          const int2 r = visible_range(qp[i], causal, window);
+          const bool seen = base * BQ + 32 * (i0 + i) + lane < Sq && r.x <= r.y &&
+                            r.x <= kmax && r.y >= kmin;
+          if (__any_sync(0xffffffffu, seen)) tiles |= 1u << ((i0 + i) * 32 / BQ);
+        }
+      }
+      while (tiles) {
+        const int q0 = (base + __ffs(tiles) - 1) * BQ;
+        tiles &= tiles - 1;
+        // the rows' ranges; the tile is full if every row exists and every
+        // range holds every slot of the kv tile
+        int2 rng[BQ / 32];
+        int ragged = 0, lo_max = INT_MIN, hi_min = INT_MAX;
+#pragma unroll
+        for (int i = 0; i < BQ / 32; ++i) {
+          const int row = q0 + lane + 32 * i;
+          if (row < Sq) {
+            rng[i] = visible_range(qpos[row], causal, window);
+            lo_max = max(lo_max, rng[i].x);
+            hi_min = min(hi_min, rng[i].y);
+          } else {
+            rng[i] = no_range();
+            ragged = 1;
+          }
+        }
+        lo_max = warp_max(lo_max);
+        hi_min = warp_min(hi_min);
+        const bool full = !neg && !__any_sync(0xffffffffu, ragged) && lo_max <= kmin &&
+                          hi_min >= kmax;
+        for (int gi = 0; gi < G; ++gi) {
+          const int h = kvh * G + gi;
+          const long long head = ((long long)b * H + h) * Sq;
+          float l2[BQ / 32], dl[BQ / 32];
+#pragma unroll
+          for (int i = 0; i < BQ / 32; ++i) {
+            const int row = q0 + lane + 32 * i;
+            l2[i] = row < Sq ? lse[head + row] * LOG2E : INFINITY;
+            dl[i] = row < Sq ? delta[head + row] : 0.f;
+          }
+          mbar_wait(&empty_bar[stage], phase ^ 1);
+#pragma unroll
+          for (int i = 0; i < BQ / 32; ++i) {
+            s_lse2[stage][lane + 32 * i] = l2[i];
+            s_dl[stage][lane + 32 * i] = dl[i];
+            s_rng[stage][lane + 32 * i] = rng[i];
+          }
+          if (lane == 0) s_cls[stage] = full ? CLS_FULL : CLS_PARTIAL;
+          __syncwarp();
+          if (lane == 0) {
+            mbar_expect_tx(&full_bar[stage], 2 * C::QT_BYTES);
+#pragma unroll
+            for (int cb = 0; cb < C::CB; ++cb) {
+              tma_load_4d(sQ + stage * C::QT_BYTES + cb * BQ * 128, &tm_q, &full_bar[stage],
+                          cb * 64, h, q0, b);
+              tma_load_4d(sdO + stage * C::QT_BYTES + cb * BQ * 128, &tm_do,
+                          &full_bar[stage], cb * 64, h, q0, b);
+            }
+          }
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    mbar_wait(&empty_bar[stage], phase ^ 1);     // hand over "no more items"
+    if (lane == 0) {
+      s_cls[stage] = CLS_END;
+      mbar_arrive(&full_bar[stage]);
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    // ---- consumer warpgroups: 64 kv rows each ----
+    const int wg = warp >> 2;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = wg * 64 + (warp & 3) * 16 + g;   // this thread's rows in the tile
+    // the tile's kv positions, read by partial items only (registers are
+    // short here)
+    if (threadIdx.x < OWN)
+      s_kp[threadIdx.x] = k0 + threadIdx.x < Skv ? kv_pos[(long long)b * Skv + k0 + threadIdx.x]
+                                                 : -1;
+    named_sync(3);
+    const Score score = make_score(scale, softcap);
+
+    float dK[D / 2], dV[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dK[i] = dV[i] = 0.f;
+    float s[BQ / 2], dp[BQ / 2];           // S^T, dP^T: kv rows x q columns
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];   // P^T, dS^T of the previous item
+    const uint32_t k_addr = smem_u32(sK) + wg * 64 * 128;
+    const uint32_t v_addr = smem_u32(sV) + wg * 64 * 128;
+
+    auto issue_sdp = [&](int stage) {    // S^T = K Q^T, dP^T = V dO^T
+      wgmma_fence();
+      issue_abt<D, BQ>(s, k_addr, OWN, smem_u32(sQ + stage * C::QT_BYTES));
+      wgmma_commit();
+      issue_abt<D, BQ>(dp, v_addr, OWN, smem_u32(sdO + stage * C::QT_BYTES));
+      wgmma_commit();
+    };
+    auto issue_grads = [&](int stage) {  // dV += P^T dO, dK += dS^T Q
+      wgmma_fence();   // a pipeline stage of its own (ptxas C7515 otherwise)
+      issue_ab<D, BQ>(dV, pa, smem_u32(sdO + stage * C::QT_BYTES));
+      issue_ab<D, BQ>(dK, da, smem_u32(sQ + stage * C::QT_BYTES));
+      wgmma_commit();
+    };
+    // s[4n + e], dp[4n + e]: kv row lo (e < 2) or hi, q column 8n + 2t + (e & 1).
+    // P^T, dS^T of the item in `stage` once S^T, dP^T are in, with L later
+    // wgmma groups still pending; without a soft-cap P^T is computed as soon
+    // as S^T is in, while the tensor cores run dP^T.
+    auto scores = [&](int stage, int cls, auto later) {
+      constexpr int L = decltype(later)::value;
+      const int kp_lo = s_kp[r_lo], kp_hi = s_kp[r_lo + 8];
+      auto visible = [&](int n, int4& rg) {
+        rg = make_int4(INT_MIN, INT_MAX, INT_MIN, INT_MAX);
+        if (cls == CLS_PARTIAL) rg = *reinterpret_cast<const int4*>(&s_rng[stage][n * 8 + 2 * t]);
+      };
+      if constexpr (CAP) {
+        wgmma_wait<L>();
+        fence_regs(s);
+        fence_regs(dp);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const int c = n * 8 + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(&s_lse2[stage][c]);
+          const float2 dl = *reinterpret_cast<const float2*>(&s_dl[stage][c]);
+          int4 rg;
+          visible(n, rg);
+          score.capped(s[4 * n], dp[4 * n], l2.x, dl.x, kp_lo >= rg.x && kp_lo <= rg.y);
+          score.capped(s[4 * n + 1], dp[4 * n + 1], l2.y, dl.y, kp_lo >= rg.z && kp_lo <= rg.w);
+          score.capped(s[4 * n + 2], dp[4 * n + 2], l2.x, dl.x, kp_hi >= rg.x && kp_hi <= rg.y);
+          score.capped(s[4 * n + 3], dp[4 * n + 3], l2.y, dl.y, kp_hi >= rg.z && kp_hi <= rg.w);
+        }
+      } else {
+        wgmma_wait<L + 1>();
+        fence_regs(s);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(&s_lse2[stage][n * 8 + 2 * t]);
+          int4 rg;
+          visible(n, rg);
+          s[4 * n] = score.p(s[4 * n], l2.x, kp_lo >= rg.x && kp_lo <= rg.y);
+          s[4 * n + 1] = score.p(s[4 * n + 1], l2.y, kp_lo >= rg.z && kp_lo <= rg.w);
+          s[4 * n + 2] = score.p(s[4 * n + 2], l2.x, kp_hi >= rg.x && kp_hi <= rg.y);
+          s[4 * n + 3] = score.p(s[4 * n + 3], l2.y, kp_hi >= rg.z && kp_hi <= rg.w);
+        }
+        wgmma_wait<L>();
+        fence_regs(dp);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float2 dl = *reinterpret_cast<const float2*>(&s_dl[stage][n * 8 + 2 * t]);
+          dp[4 * n] = s[4 * n] * (dp[4 * n] - dl.x);
+          dp[4 * n + 1] = s[4 * n + 1] * (dp[4 * n + 1] - dl.y);
+          dp[4 * n + 2] = s[4 * n + 2] * (dp[4 * n + 2] - dl.x);
+          dp[4 * n + 3] = s[4 * n + 3] * (dp[4 * n + 3] - dl.y);
+        }
+      }
+    };
+
+    // Ping-pong, as the forward: the warpgroups take turns to issue their
+    // wgmma (named barrier 1 + wg is this warpgroup's turn), so that one's
+    // P, dS run on the CUDA cores while the other's products run. Warpgroup
+    // 0 goes first.
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
+    if (C::OVERLAP && wg == 1) named_arrive(other_turn);
+
+    mbar_wait(&kv_bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(&full_bar[stage], phase);
+    int cls = __shfl_sync(0xffffffffu, s_cls[stage], 0);
+    if (cls != CLS_END && !C::OVERLAP) {
+      // one item at a time: its products are done before the next S^T
+      for (;;) {
+        issue_sdp(stage);
+        scores(stage, cls, std::integral_constant<int, 0>());
+        pack_a<BQ>(pa, s);
+        pack_a<BQ>(da, dp);
+        issue_grads(stage);
+        wgmma_wait<0>();
+        fence_regs(dK);
+        fence_regs(dV);
+        if (lane == 0) mbar_arrive(&empty_bar[stage]);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        mbar_wait(&full_bar[stage], phase);
+        cls = __shfl_sync(0xffffffffu, s_cls[stage], 0);
+        if (cls == CLS_END) break;
+      }
+    } else if (cls != CLS_END) {
+      // the first item: no products of an earlier one to run behind it
+      named_sync(my_turn);
+      issue_sdp(stage);
+      named_arrive(other_turn);
+      scores(stage, cls, std::integral_constant<int, 0>());
+      pack_a<BQ>(pa, s);
+      pack_a<BQ>(da, dp);
+      int prev = stage;
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      for (;;) {
+        mbar_wait(&full_bar[stage], phase);
+        cls = __shfl_sync(0xffffffffu, s_cls[stage], 0);
+        if (cls == CLS_END) break;
+        // S^T, dP^T of this item, then the previous item's dV, dK products,
+        // which the tensor cores run while this item's P, dS are computed
+        named_sync(my_turn);
+        issue_sdp(stage);
+        issue_grads(prev);
+        named_arrive(other_turn);
+        scores(stage, cls, std::integral_constant<int, 1>());
+        wgmma_wait<0>();
+        fence_regs(dK);
+        fence_regs(dV);
+        if (lane == 0) mbar_arrive(&empty_bar[prev]);   // its stage goes back
+        pack_a<BQ>(pa, s);
+        pack_a<BQ>(da, dp);
+        prev = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      issue_grads(prev);                               // the last item's
+      wgmma_wait<0>();
+      fence_regs(dK);
+      fence_regs(dV);
+    }
+    if (C::OVERLAP && wg == 0) named_sync(my_turn);  // takes warpgroup 1's last arrival
 
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t;
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = k0 + warp * 16 + g + 8 * hi;
-      if (row >= Skv) continue;
-      const long long i = (((long long)b * Skv + row) * KV + kvh) * D + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + i) =
-          __floats2bfloat162_rn(dK[n][2 * hi] * scale, dK[n][2 * hi + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + i) =
-          __floats2bfloat162_rn(dV[n][2 * hi], dV[n][2 * hi + 1]);
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = k0 + r_lo + 8 * hi;
+        if (row >= Skv) continue;
+        const long long i = (((long long)b * Skv + row) * KV + kvh) * D + c;
+        *reinterpret_cast<__nv_bfloat162*>(dk + i) =
+            __floats2bfloat162_rn(dK[4 * n + 2 * hi] * scale, dK[4 * n + 2 * hi + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + i) =
+            __floats2bfloat162_rn(dV[4 * n + 2 * hi], dV[4 * n + 2 * hi + 1]);
+      }
     }
   }
 }
 
-// one block per (q tile, head, batch), q tiles in reverse so that the causal
-// tiles with the most kv tiles start first; see the header. For D = 64 three
-// blocks share an SM (at most 168 registers, no spills): this kernel alone
-// measured 0.285 ms against 0.320 ms for two blocks at the training shape
-// (B=4 S=2048 H=15 KV=5) on an H100 80GB HBM3 at 700 W.
-template <int D>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : 1) flash_bwd_dq(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+// one block per (q tile of 128 rows, head, batch), q tiles in reverse so that
+// the causal tiles with the most kv tiles start first; see the header
+template <int D, bool CAP>
+__global__ void __launch_bounds__(TC_THREADS, 1) flash_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
     __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int KV, int causal,
     int window, float scale, float softcap) {
   using C = BwdCfg<D>;
-  extern __shared__ __align__(128) uint8_t smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = reinterpret_cast<__nv_bfloat16*>(smem + C::TILE_BYTES);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + 2 * C::TILE_BYTES);  // [2]
-  __nv_bfloat16* sV = sK + 2 * TILE * D;                                           // [2]
-  const int nkt = (Skv + TILE - 1) / TILE;
-  int* s_tiles = reinterpret_cast<int*>(smem + C::DQ_SMEM);    // visible kv tiles
-  int* s_flags = s_tiles + nkt;
-  __shared__ int s_kp[2][TILE];
-  __shared__ int s_red[2], s_count;
+  constexpr int BKV = C::BKV;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[STAGES], empty_bar[STAGES], q_bar;
+  __shared__ __align__(8) int s_kvpos[STAGES][BKV];
+  __shared__ int s_cls[STAGES];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE, h = blockIdx.y, b = blockIdx.z;
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sdO = sQ + C::OWN_BYTES;              // [CB][OWN][64]
+  uint8_t* sK = sdO + C::OWN_BYTES;              // [STAGES][CB][BKV][64]
+  uint8_t* sV = sK + STAGES * C::KT_BYTES;       // [STAGES][CB][BKV][64]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * OWN;     // heaviest tiles first
   const int kvh = h / (H / KV);
-  const long long q_rs = (long long)H * D, kv_rs = (long long)KV * D;
-  const long long head = ((long long)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((long long)b * Skv * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((long long)b * Skv * KV + kvh) * D;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
 
-  load_tile<D, TILE>(sQ, q + head, q0, Sq, q_rs);
-  load_tile<D, TILE>(sdO, dout + head, q0, Sq, q_rs);
-  cp_async_commit();
-
-  // the block's rows: their visible ranges, and the union of them
-  int2 rng = no_range();
-  if (tid < TILE && q0 + tid < Sq)
-    rng = visible_range(q_pos[(long long)b * Sq + q0 + tid], causal, window);
-  const bool live = rng.x <= rng.y;
-  const int qlo = block_minmax(rng.x, live, s_red).x;
-  const int qhi = block_minmax(rng.y, live, s_red).y;
-
-  // the kv tiles in which some slot is seen by some row
-  const int n_vis = visible_tiles(Skv, TILE, s_flags, s_tiles, &s_count, [&](int j) {
-    const int p = kv_pos[(long long)b * Skv + j];
-    return qlo <= qhi && p >= 0 && p >= qlo && p <= qhi;
-  });
-
-  // this thread's two rows (g, g + 8 of its warp's 16)
-  float lse2[2], dl[2];
-  int2 rg[2];
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int row = q0 + warp * 16 + g + 8 * hi;
-    const bool in = row < Sq;
-    const long long i = ((long long)b * H + h) * Sq + row;
-    lse2[hi] = in ? lse[i] * LOG2E : INFINITY;
-    dl[hi] = in ? delta[i] : 0.f;
-    rg[hi] = in ? visible_range(q_pos[(long long)b * Sq + row], causal, window) : no_range();
-  }
-
-  auto fetch = [&](int item, int st) {
-    const int kt = s_tiles[item];
-    load_tile<D, TILE>(sK + st * TILE * D, kb, kt * TILE, Skv, kv_rs);
-    load_tile<D, TILE>(sV + st * TILE * D, vb, kt * TILE, Skv, kv_rs);
-    cp_async_commit();
-  };
-  // a tile's kv positions, loaded one tile ahead (as load_rows in dK/dV)
-  int n_kp = -1;
-  auto load_kp = [&](int item) {
-    const int j = s_tiles[item] * TILE + tid;
-    n_kp = tid < TILE && j < Skv ? kv_pos[(long long)b * Skv + j] : -1;
-  };
-  auto store_kp = [&](int st) {
-    if (tid < TILE) s_kp[st][tid] = n_kp;
-  };
-
-  float dQ[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dQ[i][e] = 0.f;
-
-  const Score score = make_score(scale, softcap);
-  const uint32_t aQ = smem_u32(sQ), adO = smem_u32(sdO);
-
-  if (n_vis > 0) {
-    fetch(0, 0);
-    load_kp(0);
-    store_kp(0);
-  }
-  for (int it = 0; it < n_vis; ++it) {
-    const int st = it & 1;
-    const bool more = it + 1 < n_vis;
-    if (more) {
-      fetch(it + 1, st ^ 1);
-      load_kp(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], CONSUMER_WARPS);
     }
-    __syncthreads();
-    const uint32_t aK = smem_u32(sK + st * TILE * D), aV = smem_u32(sV + st * TILE * D);
-    float s[TILE / 8][4], dp[TILE / 8][4];
-#pragma unroll
-    for (int i = 0; i < TILE / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    gemm_abt<D, TILE>(s, aQ, warp * 16, aK);    // S = Q K^T
-    gemm_abt<D, TILE>(dp, adO, warp * 16, aV);  // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1;
-        const int kpe = s_kp[st][n * 8 + 2 * t + (e & 1)];
-        float ds;
-        score(s[n][e], dp[n][e], lse2[hi], dl[hi], kpe >= rg[hi].x && kpe <= rg[hi].y, &ds);
-        dp[n][e] = ds;
+    mbar_init(&q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {                 // the roles as in dK/dV
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > CONSUMER_WARPS) return;
+    // ---- producer warp: Q, dO once; K, V tiles classed as the forward's ----
+    int qmin = INT_MAX, qmax = INT_MIN;
+    for (int r = lane; r < OWN; r += 32) {
+      if (q0 + r < Sq) {
+        const int p = q_pos[(long long)b * Sq + q0 + r];
+        qmin = min(qmin, p);
+        qmax = max(qmax, p);
       }
     }
-    gemm_xb<D, TILE>(dQ, dp, aK);               // dQ += dS K
-    if (more) store_kp(st ^ 1);
-    __syncthreads();
-  }
-  if (n_vis == 0) cp_async_wait<0>();
+    qmin = warp_min(qmin);
+    qmax = warp_max(qmax);
+    if (lane == 0) {
+      mbar_expect_tx(&q_bar, 2 * C::OWN_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < C::CB; ++cb) {
+        tma_load_4d(sQ + cb * OWN * 128, &tm_q, &q_bar, cb * 64, h, q0, b);
+        tma_load_4d(sdO + cb * OWN * 128, &tm_do, &q_bar, cb * 64, h, q0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    const int* kpos = kv_pos + (long long)b * Skv;   // this batch's slots
+    // SCAN kv tiles at a time: a bit per tile in which some slot may be seen
+    // by some row of the block, from the slots' positions, LOADS in flight
+    // at once
+    for (int base = 0; base * BKV < Skv; base += SCAN) {
+      uint32_t tiles = 0;
+      for (int i0 = 0; i0 < SCAN * BKV / 32; i0 += LOADS) {  // 32-slot groups
+        int kp[LOADS];
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i) {
+          const int j = base * BKV + 32 * (i0 + i) + lane;
+          kp[i] = j < Skv ? kpos[j] : -1;
+        }
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i) {
+          const bool seen = kp[i] >= 0 && !(causal && kp[i] > qmax) &&
+                            !(window > 0 &&
+                              (long long)qmin - (long long)kp[i] >= (long long)window);
+          if (__any_sync(0xffffffffu, seen)) tiles |= 1u << ((i0 + i) * 32 / BKV);
+        }
+      }
+      while (tiles) {
+        const int k0 = (base + __ffs(tiles) - 1) * BKV;
+        tiles &= tiles - 1;
+        int pos[BKV / 32];
+        int kmin = INT_MAX, kmax = INT_MIN, neg = 0;
+#pragma unroll
+        for (int i = 0; i < BKV / 32; ++i) {
+          const int j = k0 + lane + 32 * i;
+          const int p = j < Skv ? kpos[j] : -1;
+          pos[i] = p;
+          if (p < 0) {
+            neg = 1;
+          } else {
+            kmin = min(kmin, p);
+            kmax = max(kmax, p);
+          }
+        }
+        kmin = warp_min(kmin);
+        kmax = warp_max(kmax);
+        neg = __any_sync(0xffffffffu, neg);
+        const bool full = !neg && (!causal || kmax <= qmin) &&
+                          (window <= 0 || (long long)qmax - (long long)kmin < (long long)window);
+        mbar_wait(&empty_bar[stage], phase ^ 1);
+#pragma unroll
+        for (int i = 0; i < BKV / 32; ++i) s_kvpos[stage][lane + 32 * i] = pos[i];
+        if (lane == 0) s_cls[stage] = full ? CLS_FULL : CLS_PARTIAL;
+        __syncwarp();
+        if (lane == 0) {
+          mbar_expect_tx(&full_bar[stage], 2 * C::KT_BYTES);
+#pragma unroll
+          for (int cb = 0; cb < C::CB; ++cb) {
+            tma_load_4d(sK + stage * C::KT_BYTES + cb * BKV * 128, &tm_k, &full_bar[stage],
+                        cb * 64, kvh, k0, b);
+            tma_load_4d(sV + stage * C::KT_BYTES + cb * BKV * 128, &tm_v, &full_bar[stage],
+                        cb * 64, kvh, k0, b);
+          }
+        }
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    mbar_wait(&empty_bar[stage], phase ^ 1);     // hand over "no more tiles"
+    if (lane == 0) {
+      s_cls[stage] = CLS_END;
+      mbar_arrive(&full_bar[stage]);
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    // ---- consumer warpgroups: 64 query rows each ----
+    const int wg = warp >> 2;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = wg * 64 + (warp & 3) * 16 + g;   // this thread's rows in the block
+    const int row_lo = q0 + r_lo, row_hi = row_lo + 8;
+    // rows past Sq: lse +inf (P = 0) and no visible range
+    const long long li = ((long long)b * H + h) * Sq;
+    const bool in_lo = row_lo < Sq, in_hi = row_hi < Sq;
+    const float lse2_lo = in_lo ? lse[li + row_lo] * LOG2E : INFINITY;
+    const float lse2_hi = in_hi ? lse[li + row_hi] * LOG2E : INFINITY;
+    const float dl_lo = in_lo ? delta[li + row_lo] : 0.f;
+    const float dl_hi = in_hi ? delta[li + row_hi] : 0.f;
+    const int2 vis_lo = in_lo ? visible_range(q_pos[(long long)b * Sq + row_lo], causal, window)
+                              : no_range();
+    const int2 vis_hi = in_hi ? visible_range(q_pos[(long long)b * Sq + row_hi], causal, window)
+                              : no_range();
+    const Score score = make_score(scale, softcap);
+
+    float dQ[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dQ[i] = 0.f;
+    float s[BKV / 2], dp[BKV / 2];          // S, dP: q rows x kv columns
+    uint32_t da[BKV / 16][4];               // dS of the previous tile
+    const uint32_t q_addr = smem_u32(sQ) + wg * 64 * 128;
+    const uint32_t do_addr = smem_u32(sdO) + wg * 64 * 128;
+
+    auto issue_sdp = [&](int stage) {    // S = Q K^T, dP = dO V^T
+      wgmma_fence();
+      issue_abt<D, BKV>(s, q_addr, OWN, smem_u32(sK + stage * C::KT_BYTES));
+      wgmma_commit();
+      issue_abt<D, BKV>(dp, do_addr, OWN, smem_u32(sV + stage * C::KT_BYTES));
+      wgmma_commit();
+    };
+    auto issue_grads = [&](int stage) {  // dQ += dS K
+      wgmma_fence();
+      issue_ab<D, BKV>(dQ, da, smem_u32(sK + stage * C::KT_BYTES));
+      wgmma_commit();
+    };
+    // s[4n + e], dp[4n + e]: q row lo (e < 2) or hi, kv column 8n + 2t + (e & 1).
+    // P, dS as in dK/dV (scores there).
+    auto scores = [&](int stage, int cls, auto later) {
+      constexpr int L = decltype(later)::value;
+      // the element's visibility: ok[0..3] for s[4n .. 4n + 3]
+      auto visible = [&](int n, bool (&ok)[4]) {
+        ok[0] = ok[1] = ok[2] = ok[3] = true;
+        if (cls == CLS_PARTIAL) {
+          const int2 kp = *reinterpret_cast<const int2*>(&s_kvpos[stage][n * 8 + 2 * t]);
+          ok[0] = kp.x >= vis_lo.x && kp.x <= vis_lo.y;
+          ok[1] = kp.y >= vis_lo.x && kp.y <= vis_lo.y;
+          ok[2] = kp.x >= vis_hi.x && kp.x <= vis_hi.y;
+          ok[3] = kp.y >= vis_hi.x && kp.y <= vis_hi.y;
+        }
+      };
+      if constexpr (CAP) {
+        wgmma_wait<L>();
+        fence_regs(s);
+        fence_regs(dp);
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n) {
+          bool ok[4];
+          visible(n, ok);
+          score.capped(s[4 * n], dp[4 * n], lse2_lo, dl_lo, ok[0]);
+          score.capped(s[4 * n + 1], dp[4 * n + 1], lse2_lo, dl_lo, ok[1]);
+          score.capped(s[4 * n + 2], dp[4 * n + 2], lse2_hi, dl_hi, ok[2]);
+          score.capped(s[4 * n + 3], dp[4 * n + 3], lse2_hi, dl_hi, ok[3]);
+        }
+      } else {
+        wgmma_wait<L + 1>();
+        fence_regs(s);
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n) {
+          bool ok[4];
+          visible(n, ok);
+          s[4 * n] = score.p(s[4 * n], lse2_lo, ok[0]);
+          s[4 * n + 1] = score.p(s[4 * n + 1], lse2_lo, ok[1]);
+          s[4 * n + 2] = score.p(s[4 * n + 2], lse2_hi, ok[2]);
+          s[4 * n + 3] = score.p(s[4 * n + 3], lse2_hi, ok[3]);
+        }
+        wgmma_wait<L>();
+        fence_regs(dp);
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n) {
+          dp[4 * n] = s[4 * n] * (dp[4 * n] - dl_lo);
+          dp[4 * n + 1] = s[4 * n + 1] * (dp[4 * n + 1] - dl_lo);
+          dp[4 * n + 2] = s[4 * n + 2] * (dp[4 * n + 2] - dl_hi);
+          dp[4 * n + 3] = s[4 * n + 3] * (dp[4 * n + 3] - dl_hi);
+        }
+      }
+    };
+
+    // Ping-pong, as in dK/dV
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
+    if (wg == 1) named_arrive(other_turn);
+
+    mbar_wait(&q_bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(&full_bar[stage], phase);
+    int cls = __shfl_sync(0xffffffffu, s_cls[stage], 0);
+    if (cls != CLS_END) {
+      named_sync(my_turn);
+      issue_sdp(stage);
+      named_arrive(other_turn);
+      scores(stage, cls, std::integral_constant<int, 0>());
+      pack_a<BKV>(da, dp);
+      int prev = stage;
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      for (;;) {
+        mbar_wait(&full_bar[stage], phase);
+        cls = __shfl_sync(0xffffffffu, s_cls[stage], 0);
+        if (cls == CLS_END) break;
+        named_sync(my_turn);
+        issue_sdp(stage);
+        issue_grads(prev);
+        named_arrive(other_turn);
+        scores(stage, cls, std::integral_constant<int, 1>());
+        wgmma_wait<0>();
+        fence_regs(dQ);
+        if (lane == 0) mbar_arrive(&empty_bar[prev]);
+        pack_a<BKV>(da, dp);
+        prev = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      issue_grads(prev);
+      wgmma_wait<0>();
+      fence_regs(dQ);
+    }
+    if (wg == 0) named_sync(my_turn);   // takes warpgroup 1's last arrival
 
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = q0 + warp * 16 + g + 8 * hi;
-      if (row >= Sq) continue;
-      *reinterpret_cast<__nv_bfloat162*>(dq + head + (long long)row * q_rs + c) =
-          __floats2bfloat162_rn(dQ[n][2 * hi] * scale, dQ[n][2 * hi + 1] * scale);
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (in_lo)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * Sq + row_lo) * H + h) * D + c) =
+            __floats2bfloat162_rn(dQ[4 * n] * scale, dQ[4 * n + 1] * scale);
+      if (in_hi)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * Sq + row_hi) * H + h) * D + c) =
+            __floats2bfloat162_rn(dQ[4 * n + 2] * scale, dQ[4 * n + 3] * scale);
     }
   }
 }
@@ -863,31 +1115,44 @@ int launch_delta(const Args& a, int D) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch_bf16(const Args& a) {
   using C = BwdCfg<D>;
   using bf = __nv_bfloat16;
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout)) % 16)
+    return (int)cudaErrorMisalignedAddress;
   int err = launch_delta<bf>(a, D);
   if (err) return err;
-  const int nqt = (a.Sq + C::BN - 1) / C::BN, nkt = (a.Skv + TILE - 1) / TILE;
-  const int smem_kv = C::DKDV_SMEM + 2 * nqt * (int)sizeof(int);
-  const int smem_q = C::DQ_SMEM + 2 * nkt * (int)sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  // dense (B, S, heads, D): element strides of batch, sequence, head
+  const long long q_st[3] = {(long long)a.Sq * a.H * D, (long long)a.H * D, D};
+  const long long k_st[3] = {(long long)a.Skv * a.KV * D, (long long)a.KV * D, D};
+  CUtensorMap q_item, do_item, k_own, v_own, q_own, do_own, k_tile, v_tile;
+  if (!make_map(&q_item, a.q, a.B, a.Sq, a.H, D, q_st, C::BQ) ||
+      !make_map(&do_item, a.dout, a.B, a.Sq, a.H, D, q_st, C::BQ) ||
+      !make_map(&k_own, a.k, a.B, a.Skv, a.KV, D, k_st, OWN) ||
+      !make_map(&v_own, a.v, a.B, a.Skv, a.KV, D, k_st, OWN) ||
+      !make_map(&q_own, a.q, a.B, a.Sq, a.H, D, q_st, OWN) ||
+      !make_map(&do_own, a.dout, a.B, a.Sq, a.H, D, q_st, OWN) ||
+      !make_map(&k_tile, a.k, a.B, a.Skv, a.KV, D, k_st, C::BKV) ||
+      !make_map(&v_tile, a.v, a.B, a.Skv, a.KV, D, k_st, C::BKV))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D, CAP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       C::DKDV_SMEM);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_q);
+  e = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv<D><<<dim3(nkt, a.KV, a.B), THREADS, smem_kv, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-      static_cast<const bf*>(a.dout), a.lse, a.delta, a.q_pos, a.kv_pos,
+  const int nkt = (a.Skv + OWN - 1) / OWN, nqt = (a.Sq + OWN - 1) / OWN;
+  flash_bwd_dkdv_wgmma<D, CAP><<<dim3(a.KV, a.B, nkt), TC_THREADS, C::DKDV_SMEM, a.stream>>>(
+      q_item, do_item, k_own, v_own, a.lse, a.delta, a.q_pos, a.kv_pos,
       static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.Sq, a.Skv, a.H, a.KV, a.causal,
       a.window, a.scale, a.softcap);
   err = (int)cudaGetLastError();
   if (err) return err;
-  flash_bwd_dq<D><<<dim3((a.Sq + TILE - 1) / TILE, a.H, a.B), THREADS, smem_q, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-      static_cast<const bf*>(a.dout), a.lse, a.delta, a.q_pos, a.kv_pos,
+  flash_bwd_dq_wgmma<D, CAP><<<dim3(a.H, a.B, nqt), TC_THREADS, C::DQ_SMEM, a.stream>>>(
+      q_own, do_own, k_tile, v_tile, a.lse, a.delta, a.q_pos, a.kv_pos,
       static_cast<bf*>(a.dq), a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.scale,
       a.softcap);
   return (int)cudaGetLastError();
@@ -940,7 +1205,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                window, scale, softcap, static_cast<cudaStream_t>(stream)};
   if (dtype == 0 && D == 64) return launch_f32<64>(a);
   if (dtype == 0 && D == 128) return launch_f32<128>(a);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(a);
-  if (dtype == 1 && D == 128) return launch_bf16<128>(a);
+  const bool cap = softcap > 0.f;
+  if (dtype == 1 && D == 64) return cap ? launch_bf16<64, true>(a) : launch_bf16<64, false>(a);
+  if (dtype == 1 && D == 128)
+    return cap ? launch_bf16<128, true>(a) : launch_bf16<128, false>(a);
   return (int)cudaErrorInvalidValue;
 }

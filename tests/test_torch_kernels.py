@@ -258,3 +258,175 @@ def test_rmsnorm_grad_matches_jax(shape, dtype, tol):
     np.testing.assert_allclose(_np(tx.grad), _np(gx), rtol=tol, atol=tol)
     np.testing.assert_allclose(_np(ts.grad), _np(gs), rtol=max(tol, 1e-5) if dtype ==
                                "float32" else 2e-2, atol=tol * np.abs(_np(gs)).max())
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by the hash of its source and of the
+    headers beside it: an edited header gives a new library (no nvcc)."""
+    from repro_torch.kernels import build
+    src, header = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"\n')
+    header.write_text("#define N 1\n")
+    monkeypatch.setattr(build, "SOURCES", {"k": src})
+    before = build.library("k")
+    assert build.library("k") == before
+    header.write_text("#define N 2\n")
+    after = build.library("k")
+    assert after != before and after.parent == before.parent
+    (tmp_path / "other.cuh").write_text("// a new header beside the source\n")
+    assert build.library("k") != after
+
+
+@pytest.mark.filterwarnings("ignore:Mismatch dtype")   # no fused kernel for mixed dtypes
+@pytest.mark.parametrize("shape", [(4, 17, 96), (2, 100), (3, 5, 7, 32)])
+def test_torch_rms_norm_matches_plain_versions(shape):
+    """F.rms_norm, the library call chip_smoke.py times beside the Triton
+    kernels, on bf16 rows with an fp32 scale: the same bits as rmsnorm_ref,
+    and its autograd gradients (bf16 dx, fp32 dscale) as rmsnorm_bwd_ref
+    within the bf16 tolerances of test_rmsnorm_grad_matches_jax."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_ref, rmsnorm_ref
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+    s = torch.from_numpy(0.5 + 0.05 * rng.standard_normal(shape[-1:], dtype=np.float32))
+    dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+    xr, sr = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    y = torch.nn.functional.rms_norm(xr, shape[-1:], sr, 1e-5)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, rmsnorm_ref(x, s, 1e-5))
+    dx, ds = torch.autograd.grad(y, (xr, sr), dy)
+    rdx, rds = rmsnorm_bwd_ref(x, s, dy, 1e-5)
+    assert dx.dtype == torch.bfloat16 and ds.dtype == torch.float32
+    np.testing.assert_allclose(_np(dx), _np(rdx), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(ds), _np(rds), rtol=2e-2,
+                               atol=2e-2 * np.abs(_np(rds)).max())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 limit of chip_smoke.py's check_flash_bwd against the kernels' design
+# ---------------------------------------------------------------------------
+
+def _emulate_flash_bwd(q, k, v, out, lse, dout, qp, kp, *, causal, window, softcap,
+                       with_delta=True):
+    """The two bf16 backward kernels of flash_attention_bwd.cu, tile by tile
+    in fp32: their tile sizes (dK/dV: kv tiles of 128 rows, q items of BQ =
+    64 rows, 32 for D = 128, summed over the q tiles in order and, within
+    one, the heads of the group in order; dQ: q tiles of 128 rows, kv tiles
+    of 64 in order), P = 2^(s log2(e) scale - lse log2(e)) (or the soft-cap's
+    form) and dS = P (dP - delta) (1 - tanh^2), each rounded to bf16 where
+    the kernels round them (the A operands of dV += P^T dO, dK += dS^T Q, dQ
+    += dS K), fp32 sums, results rounded to bf16 once. Tiles that no row
+    sees add exact zeros, as the kernels' skipped tiles would."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G, scale, log2e = H // KV, D ** -0.5, float(np.log2(np.e))
+    bq = 32 if D == 128 else 64
+    f = lambda t: t.float()                                   # noqa: E731
+    rnd = lambda t: t.to(torch.bfloat16).float()              # noqa: E731
+    qpos, kpos = qp[:, :, None], kp[:, None, :]
+    ok = kpos >= 0                                            # (B, Sq, Skv)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & (qpos - kpos < window)
+    delta = (f(dout) * f(out)).sum(-1).permute(0, 2, 1)       # (B, H, Sq)
+    if not with_delta:
+        delta = torch.zeros_like(delta)
+    lse2 = lse.float() * log2e
+
+    def p_ds(s, dp, l2, dl, mask):
+        if softcap > 0:
+            th = torch.tanh(s * (scale / softcap))
+            sv, dfac = th * (softcap * log2e), 1.0 - th * th
+        else:
+            sv, dfac = s * (scale * log2e), 1.0
+        p = torch.where(mask, torch.exp2(sv - l2), 0.0)
+        return p, p * (dp - dl) * dfac
+
+    dq = torch.zeros(B, Sq, H, D)
+    dk = torch.zeros(B, Skv, KV, D)
+    dv = torch.zeros(B, Skv, KV, D)
+    for b in range(B):
+        for kvh in range(KV):
+            for k0 in range(0, Skv, 128):
+                K, V = f(k[b, k0:k0 + 128, kvh]), f(v[b, k0:k0 + 128, kvh])
+                dK, dV = torch.zeros_like(K), torch.zeros_like(V)
+                for q0 in range(0, Sq, bq):
+                    for h in range(kvh * G, kvh * G + G):
+                        Q, dO = f(q[b, q0:q0 + bq, h]), f(dout[b, q0:q0 + bq, h])
+                        pt, dst = p_ds(K @ Q.T, V @ dO.T, lse2[b, h, q0:q0 + bq],
+                                       delta[b, h, q0:q0 + bq],
+                                       ok[b, q0:q0 + bq, k0:k0 + 128].T)
+                        dV += rnd(pt) @ dO
+                        dK += rnd(dst) @ Q
+                dk[b, k0:k0 + 128, kvh], dv[b, k0:k0 + 128, kvh] = dK * scale, dV
+        for h in range(H):
+            for q0 in range(0, Sq, 128):
+                Q, dO = f(q[b, q0:q0 + 128, h]), f(dout[b, q0:q0 + 128, h])
+                dQ = torch.zeros_like(Q)
+                for k0 in range(0, Skv, 64):
+                    K, V = f(k[b, k0:k0 + 64, h // G]), f(v[b, k0:k0 + 64, h // G])
+                    _, ds = p_ds(Q @ K.T, dO @ V.T, lse2[b, h, q0:q0 + 128, None],
+                                 delta[b, h, q0:q0 + 128, None], ok[b, q0:q0 + 128, k0:k0 + 64])
+                    dQ += rnd(ds) @ K
+                dq[b, q0:q0 + 128, h] = dQ * scale
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _bwd_magnitudes(q, k, v, out, lse, dout, qp, kp, *, causal, window, softcap):
+    """A of check_flash_bwd's limit, as chip_smoke.py's _bwd_magnitudes
+    computes it: per gradient element the sum of the magnitudes of its terms
+    in fp32, with m = |dS| + 2**-8 P (|dP| + |delta|) in place of |dS|."""
+    from repro_torch.kernels.flash_attention.ref import _scores
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    s, t, ok = _scores(q, k, qp, kp, causal, window, softcap)
+    p = torch.where(ok, torch.exp(s - lse.float().reshape(B, KV, G, Sq)[..., None]), 0.0)
+    do = dout.float().reshape(B, Sq, KV, G, D)
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(B, KV, G, Sq)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = p * (dp - delta[..., None])
+    noise = p * (dp.abs() + delta.abs()[..., None])
+    if t is not None:
+        ds, noise = ds * (1.0 - t * t), noise * (1.0 - t * t)
+    ds = ds.abs() + 2.0 ** -8 * noise
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float().abs()) * D ** -0.5
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().abs().reshape(B, Sq, KV, G, D)) * D ** -0.5
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do.abs())
+    return dq.reshape(B, Sq, H, D), dk, dv
+
+
+def _worst(got, refs, limits) -> float:
+    """max over the gradients of |got - ref| / limit (an exact match is 0)."""
+    worst = 0.0
+    for x, r, lim in zip(got, refs, limits):
+        d = (x.float() - r.float()).abs()
+        worst = max(worst, torch.where(d == 0, 0.0, d / lim).max().item())
+    return worst
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,softcap,masked", [
+    (2, 24, 24, 4, 2, 16, True, 0, 0.0, False),     # GQA, causal
+    (1, 20, 20, 3, 3, 8, True, 6, 0.0, False),      # sliding window
+    (2, 16, 16, 4, 1, 16, True, 0, 20.0, False),    # soft-cap, MQA
+    (2, 12, 30, 4, 2, 16, True, 0, 0.0, True),      # ragged, per-batch positions
+    (1, 18, 26, 2, 1, 8, False, 0, 0.0, False),     # not causal
+])
+def test_flash_bwd_bf16_limit_admits_the_kernels_rounding(B, Sq, Skv, H, KV, D, causal,
+                                                          window, softcap, masked):
+    """check_flash_bwd's bf16 limit, |d| <= 2**-7 |ref| + 2**-8 A, holds for
+    an emulation of the backward kernels that rounds P and dS to bf16 where
+    they do; the same emulation without its delta term fails it."""
+    q, k, v, do, qp, kp = _attn_case(B, Sq, Skv, H, KV, D, masked, Sq * Skv + H)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    qp, kp = torch.from_numpy(qp), torch.from_numpy(kp)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention_ref(q, k, v, qp, kp, return_lse=True, **kw)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, do, qp, kp, **kw)
+    mags = _bwd_magnitudes(q, k, v, out, lse, do, qp, kp, **kw)
+    limits = [2.0 ** -7 * r.float().abs() + 2.0 ** -8 * a for r, a in zip(refs, mags)]
+    got = _emulate_flash_bwd(q, k, v, out, lse, do, qp, kp, **kw)
+    assert all(x.dtype == torch.bfloat16 and x.shape == r.shape for x, r in zip(got, refs))
+    assert _worst(got, refs, limits) <= 1.0
+    dropped = _emulate_flash_bwd(q, k, v, out, lse, do, qp, kp, with_delta=False, **kw)
+    assert _worst(dropped[:2], refs[:2], limits[:2]) > 1.0
