@@ -5,7 +5,7 @@
 Builds the port's kernels from the sources in this checkout (one ``nvcc``
 per CUDA source, all started together), holds each one against its plain
 PyTorch version on the card (the flash-attention and RMSNorm backward
-kernels too, each with a negative control), then drives three paths at full
+kernels too, each with a negative control), then drives four paths at full
 width and depth (random weights from a seed):
 
   * serving, through ``repro_torch.launch.serve.ServeSession``: smollm-360m
@@ -16,7 +16,15 @@ width and depth (random weights from a seed):
     of smollm-360m, 8 x 2048 tokens in 2 microbatches (flash attention and
     RMSNorm forward and backward). It checks the launches of every step,
     finite losses, a bit-exact replay of a step from a saved state, one step
-    of a 2-layer model on the card against the CPU, and remat against none.
+    of a 2-layer model on the card against the CPU, and remat against none;
+  * supervised training, through ``repro_torch.launch.train.Trainer`` under
+    the §6.1 ``Supervisor``: 16 steps of the same model and batches through
+    a ConnectionError, a loss spike and an ECCError, with checkpoints of the
+    4.34 GB state under build/ (16 GB free needed; removed at the end). It
+    checks the events and their resume points, the launches of every step
+    executed, and that an uninterrupted run skipping the same data ends with
+    the same losses and bits; it times save_async's stall, save_sync and
+    restores from the RAM cache and from disk.
 
 It prints:
 
@@ -25,12 +33,13 @@ It prints:
     -v``) and counts of the SASS opcodes that show its design (wgmma, TMA,
     mbarrier, mma.sync, cp.async, ldmatrix; ``cuobjdump -sass``),
   * one line per check, the end-to-end prefill/decode tokens/s (median of
-    warm repeats), the train step's wall, tokens/s and peak memory, and a
+    warm repeats), the train step's wall, tokens/s and peak memory, a
     torch.profiler breakdown of one prefill, eight decode steps and one
-    train step (device busy time, launches, top kernels),
+    train step (device busy time, launches, top kernels), and the
+    supervised run's events, checkpoint times and walls,
   * a JSON line ``{"end_to_end": {path: ...}}``,
   * a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-    three paths (``launches``, their sum, and ``launches_by_path``), error,
+    four paths (``launches``, their sum, and ``launches_by_path``), error,
     time, plain time, bound and library time,
   * last, ``{"ok": true, "device": {...}}``.
 
@@ -1045,6 +1054,192 @@ def train_path(torch) -> tuple[dict, dict]:
     return launches, e2e
 
 
+# ---------------------------------------------------------------------------
+# the supervised train path (§6.1 fault-tolerant pretraining)
+# ---------------------------------------------------------------------------
+
+SUPERVISED_PATH = "supervised train smollm-360m"
+# Steps, checkpoint period, faults (step -> failure type), the data steps
+# whose recorded loss gets SPIKE_DELTA (far above the detector's threshold,
+# ~18 at this width), and the free disk the checkpoints need under build/
+# (keep=2 plus one .tmp of a 4.34 GB state).
+SUP_STEPS, SUP_CKPT_EVERY = 16, 4
+SUP_FAULTS = {6: "ConnectionError", 14: "ECCError"}
+SUP_SPIKE_STEPS, SUP_SPIKE_DELTA = (10, 11, 12), 100.0
+SUP_DISK_GB = 16.0
+
+
+def supervised_train_path(torch, card: str) -> tuple[dict, dict]:
+    """The Supervisor runs ``repro_torch.launch.train.Trainer.job`` on
+    smollm-360m at full width and depth, with train_path's TrainConfig (16
+    total steps) and batches: checkpoints every 4 steps (keep 2, 2 RAM
+    slots) under build/, a ConnectionError at step 6 (no cordon: resume from
+    the RAM cache), a loss spike on data steps 10-12 (rollback and skip) and
+    an ECCError at step 14 (cordon: drain the persists, resume from the
+    newest step on disk). Checks the report, the launches (steps executed x
+    per step; a restore launches nothing), and that a second Trainer run
+    without faults, its loader skipping what the last attempt skipped, ends
+    with the same losses and the same bits. Times save_async's stall, one
+    save_sync, and restores from the RAM cache and from disk."""
+    import shutil
+
+    from repro_torch.config import ParallelConfig, TrainConfig, get_arch
+    from repro_torch.core.ft.checkpoint import CheckpointManager
+    from repro_torch.core.ft.detection import SimulatedFleet
+    from repro_torch.core.ft.diagnosis import FailureDiagnosisSystem
+    from repro_torch.core.ft.events import BY_NAME
+    from repro_torch.core.ft.supervisor import JobContext, Supervisor
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "supervised_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    check(free_gb >= SUP_DISK_GB, f"supervised train: {free_gb:.1f} GB free under build/ "
+          f">= {SUP_DISK_GB:.0f} GB for the checkpoints")
+    counters = _counters()
+    cfg = get_arch("smollm-360m")
+    tcfg = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       microbatches=TRAIN_BATCH // TRAIN_MB, warmup_steps=2,
+                       total_steps=SUP_STEPS)
+
+    def trainer(name: str, **kw):
+        model = Model(cfg, ParallelConfig(remat="none"), device="cuda", seed=0)
+        ckpt = CheckpointManager(str(root / name), keep=2, ram_cache_slots=2)
+        return Trainer(model, tcfg, ckpt, total_steps=SUP_STEPS, log_every=1, **kw)
+
+    sup_trainer = trainer("supervised", ckpt_every=SUP_CKPT_EVERY,
+                          fault_schedule={s: BY_NAME[n] for s, n in SUP_FAULTS.items()},
+                          spike_schedule={d: SUP_SPIKE_DELTA for d in SUP_SPIKE_STEPS})
+    ckpt = sup_trainer.ckpt
+    state = (sup_trainer.params, sup_trainer.opt)
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    attempts = []          # (context, steps in the RAM cache, steps on disk) per attempt
+
+    def job(ctx):
+        attempts.append((ctx, sorted(ckpt.ram_cache), ckpt.available_steps()))
+        return sup_trainer.job(ctx)
+
+    per_step = expected_train_launches(cfg, tcfg.microbatches, "none")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    report = Supervisor(ckpt, FailureDiagnosisSystem(), SimulatedFleet(8)).run(job)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    lse = flash_attention.lse_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ckpt.wait(timeout=600)
+    executed = len(sup_trainer.history)
+    events = [{"kind": e.kind, "step": e.step, "resumed_from": e.resumed_from,
+               "lost_steps": e.lost_steps, "truth": e.truth,
+               "diagnosis": e.diagnosis.failure if e.diagnosis else None}
+              for e in report.events]
+    for e, (ctx, ram, disk) in zip(events, attempts):
+        print(f"supervised train attempt from step {ctx.start_step} (RAM cache {ram}, "
+              f"disk {disk}, skip {ctx.skip_ranges}) -> {e}", flush=True)
+    check(report.completed and report.final_step == SUP_STEPS
+          and report.diagnosis_accuracy == 1.0 and not ckpt._errors,
+          f"supervised train: completed at step {report.final_step} in {report.attempts} "
+          f"attempts, diagnosis accuracy {report.diagnosis_accuracy}, "
+          f"persist errors {ckpt._errors}")
+    kinds = [e["kind"] for e in events]
+    check(kinds == ["failure", "spike", "failure", "done"],
+          f"supervised train: events {kinds} == failure, spike, failure, done")
+    conn, spike, ecc = report.events[:3]
+    onset = min(s for s, loss in sup_trainer.history if loss > SUP_SPIKE_DELTA)
+    check(conn.truth == "ConnectionError" and conn.resumed_from in attempts[1][1]
+          and attempts[1][0].start_step == conn.resumed_from,
+          f"supervised train: the ConnectionError at step {conn.step} resumes from step "
+          f"{conn.resumed_from}, in the RAM cache {attempts[1][1]}")
+    check(spike.resumed_from <= onset and attempts[2][0].skip_ranges,
+          f"supervised train: the spike (onset step {onset}, detected at {spike.step}) "
+          f"resumes from step {spike.resumed_from} <= onset, skipping data "
+          f"{attempts[2][0].skip_ranges}")
+    check(ecc.truth == "ECCError" and ecc.diagnosis.needs_node_cordon
+          and ecc.resumed_from == max(attempts[3][2]),
+          f"supervised train: the ECCError at step {ecc.step} (cordon) resumes from step "
+          f"{ecc.resumed_from}, the newest on disk {attempts[3][2]}")
+    want = {n: executed * per_step[n] for n in counters}
+    check(launches == want and lse == want["flash_attention"],
+          f"supervised train: launches {launches} == {executed} steps executed x {per_step}")
+
+    # the blocking stall of save_async (in the run), one save_sync, and
+    # restores of the final state from the RAM cache and from disk
+    stalls_ms = [stall * 1e3 for _, stall in sup_trainer.stalls]
+    final = SUP_STEPS
+    check(final in ckpt.ram_cache and final in ckpt.available_steps(),
+          f"supervised train: step {final} in the RAM cache and on disk")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ckpt.restore(final, state)
+    torch.cuda.synchronize()
+    restore_ram_ms = (time.perf_counter() - t1) * 1e3
+    ckpt.ram_cache.clear()
+    t1 = time.perf_counter()
+    ckpt.restore(final, state)
+    torch.cuda.synchronize()
+    restore_disk_ms = (time.perf_counter() - t1) * 1e3
+    sync_ms = ckpt.save_sync(final + 1, state) * 1e3
+    ckpt.close()
+    # what the stall could come down to: the same device-to-host copy into
+    # pinned buffers allocated beforehand
+    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tree_leaves(state)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for dst, src in zip(pinned, tree_leaves(state)):
+        dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    pinned_ms = (time.perf_counter() - t1) * 1e3
+    del pinned
+    print(f"supervised train checkpoints of one {state_bytes / 1e9:.2f} GB state "
+          f"({card}): save_async stall {', '.join(f'{x:.1f}' for x in stalls_ms)} ms; "
+          f"save_sync {sync_ms:.1f} ms; restore from the RAM cache {restore_ram_ms:.1f} ms, "
+          f"from disk {restore_disk_ms:.1f} ms (the files just written: the host's page "
+          f"cache may hold them); the same copy to the host into pinned buffers allocated "
+          f"beforehand {pinned_ms:.1f} ms", flush=True)
+
+    # exactness: an uninterrupted run, its loader skipping what the last
+    # attempt skipped, gives the same losses and the same bits
+    skips = attempts[-1][0].skip_ranges
+    ref = trainer("uninterrupted", ckpt_every=10 ** 9)
+    t1 = time.perf_counter()
+    ref.job(JobContext(start_step=0, attempt=0, skip_ranges=skips, healthy_nodes=8,
+                       resume_extra={}))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t1
+    ref.ckpt.close()
+    last = dict(sup_trainer.history)
+    same_loss = [s for s, _ in ref.history] == list(range(1, SUP_STEPS + 1)) and \
+        all(last[s] == loss for s, loss in ref.history)
+    same_bits = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((sup_trainer.params, sup_trainer.opt)), tree_leaves((ref.params, ref.opt))))
+    check(same_loss and same_bits,
+          f"supervised train: an uninterrupted run skipping data {skips} gives the same "
+          f"loss at every step (last {ref.history[-1][1]:.6f}) and the same bits of "
+          f"parameters, m, v and step")
+    del sup_trainer, ref, state, ckpt
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    e2e = {"card": card, "steps": SUP_STEPS, "steps_executed": executed, "events": events,
+           "state_bytes": state_bytes, "save_async_stall_ms": stalls_ms,
+           "save_sync_ms": sync_ms, "pinned_copy_ms": pinned_ms,
+           "restore_ram_ms": restore_ram_ms,
+           "restore_disk_ms": restore_disk_ms, "supervised_run_s": run_s,
+           "uninterrupted_run_s": ref_s, "phase_s": phase_s, "peak_memory_gb": peak_gb}
+    print(f"supervised train {cfg.name} ({card}): {executed} steps executed for "
+          f"{SUP_STEPS} in {run_s:.1f} s, the uninterrupted run {ref_s:.1f} s, "
+          f"peak memory {peak_gb:.2f} GB, phase {phase_s:.1f} s", flush=True)
+    return launches, e2e
+
+
 def profile_call(torch, fn, name: str, phase: str, top_n: int = 8) -> dict:
     """The unprofiled wall time of one call of ``fn``, then torch.profiler
     over another: device busy time (sum of kernel durations on the one
@@ -1175,7 +1370,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1197,6 +1393,7 @@ def main() -> int:
             del sess, seq
             torch.cuda.empty_cache()
         launches[TRAIN_PATH], e2e[TRAIN_PATH] = train_path(torch)
+        launches[SUPERVISED_PATH], e2e[SUPERVISED_PATH] = supervised_train_path(torch, card)
         for arch in ARCHS:
             check_card_vs_cpu(torch, arch)
         check_train_card_vs_cpu(torch)
@@ -1204,7 +1401,7 @@ def main() -> int:
         return 1
     for row in rows:
         row["launches_by_path"] = {path: launches[path][row["name"]]
-                                   for path in (*ARCHS, TRAIN_PATH)}
+                                   for path in (*ARCHS, TRAIN_PATH, SUPERVISED_PATH)}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

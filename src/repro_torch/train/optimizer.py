@@ -45,7 +45,8 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
             out = {k: build(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}          # keep the caller's key order
         if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
+            out = [build(v) for v in t]
+            return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
         return next(it)
     return build(like)
 

@@ -1,5 +1,6 @@
 """The port stands alone: every module of ``repro_torch`` (the training
-modules ``repro_torch.train`` and ``repro_torch.data`` among them) imports
+modules ``repro_torch.train`` and ``repro_torch.data``, the fault-tolerance
+modules ``repro_torch.core.ft`` and the trainer among them) imports
 with ``jax`` and ``repro`` made unimportable, without pulling in ``triton``
 or building a kernel; and its copies of the configs (model, parallel, train,
 data) and layer plans have not drifted from the JAX package's."""
@@ -39,7 +40,11 @@ _PROBE = textwrap.dedent("""
         importlib.import_module(name)
     assert "triton" not in sys.modules, "importing the port pulled in triton"
     for name in ("repro_torch.data", "repro_torch.train", "repro_torch.train.optimizer",
-                 "repro_torch.train.train_step"):
+                 "repro_torch.train.train_step", "repro_torch.core.ft",
+                 *(f"repro_torch.core.ft.{m}" for m in (
+                     "events", "log_agent", "diagnosis", "detection", "spike",
+                     "checkpoint", "supervisor")),
+                 "repro_torch.launch.train"):
         assert name in names, name
     print(len(names), "modules")
 """)
@@ -50,7 +55,7 @@ def test_every_module_imports_without_jax_or_repro(tmp_path):
     res = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 29
+    assert int(res.stdout.split()[0]) >= 43
     assert not list(tmp_path.iterdir())          # nothing built or written
 
 
