@@ -1080,7 +1080,8 @@ def supervised_train_path(torch, card: str) -> tuple[dict, dict]:
     per step; a restore launches nothing), and that a second Trainer run
     without faults, its loader skipping what the last attempt skipped, ends
     with the same losses and the same bits. Times save_async's stall, one
-    save_sync, and restores from the RAM cache and from disk."""
+    save_sync, and restores of the final step from the RAM cache and from
+    disk, each into a zeroed state, which must come back with its bits."""
     import shutil
 
     from repro_torch.config import ParallelConfig, TrainConfig, get_arch
@@ -1171,39 +1172,39 @@ def supervised_train_path(torch, card: str) -> tuple[dict, dict]:
           f"supervised train: launches {launches} == {executed} steps executed x {per_step}")
 
     # the blocking stall of save_async (in the run), one save_sync, and
-    # restores of the final state from the RAM cache and from disk
+    # restores of the final state from the RAM cache and from disk, each
+    # into a zeroed state and held to a copy of the final state
     stalls_ms = [stall * 1e3 for _, stall in sup_trainer.stalls]
     final = SUP_STEPS
     check(final in ckpt.ram_cache and final in ckpt.available_steps(),
           f"supervised train: step {final} in the RAM cache and on disk")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ckpt.restore(final, state)
-    torch.cuda.synchronize()
-    restore_ram_ms = (time.perf_counter() - t1) * 1e3
+    kept = [t.clone() for t in tree_leaves(state)]
+
+    def timed_restore() -> float:
+        for t in tree_leaves(state):
+            t.zero_()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ckpt.restore(final, state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3
+
+    restore_ram_ms = timed_restore()
+    from_ram = all(torch.equal(a, b) for a, b in zip(tree_leaves(state), kept))
     ckpt.ram_cache.clear()
-    t1 = time.perf_counter()
-    ckpt.restore(final, state)
-    torch.cuda.synchronize()
-    restore_disk_ms = (time.perf_counter() - t1) * 1e3
+    restore_disk_ms = timed_restore()
+    from_disk = all(torch.equal(a, b) for a, b in zip(tree_leaves(state), kept))
+    del kept
+    check(from_ram and from_disk,
+          f"supervised train: step {final} restored into a zeroed state from the RAM cache "
+          f"({from_ram}) and from disk ({from_disk}) gives its bits")
     sync_ms = ckpt.save_sync(final + 1, state) * 1e3
     ckpt.close()
-    # what the stall could come down to: the same device-to-host copy into
-    # pinned buffers allocated beforehand
-    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tree_leaves(state)]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for dst, src in zip(pinned, tree_leaves(state)):
-        dst.copy_(src, non_blocking=True)
-    torch.cuda.synchronize()
-    pinned_ms = (time.perf_counter() - t1) * 1e3
-    del pinned
     print(f"supervised train checkpoints of one {state_bytes / 1e9:.2f} GB state "
           f"({card}): save_async stall {', '.join(f'{x:.1f}' for x in stalls_ms)} ms; "
           f"save_sync {sync_ms:.1f} ms; restore from the RAM cache {restore_ram_ms:.1f} ms, "
           f"from disk {restore_disk_ms:.1f} ms (the files just written: the host's page "
-          f"cache may hold them); the same copy to the host into pinned buffers allocated "
-          f"beforehand {pinned_ms:.1f} ms", flush=True)
+          f"cache may hold them)", flush=True)
 
     # exactness: an uninterrupted run, its loader skipping what the last
     # attempt skipped, gives the same losses and the same bits
@@ -1230,7 +1231,7 @@ def supervised_train_path(torch, card: str) -> tuple[dict, dict]:
     phase_s = time.perf_counter() - t_phase
     e2e = {"card": card, "steps": SUP_STEPS, "steps_executed": executed, "events": events,
            "state_bytes": state_bytes, "save_async_stall_ms": stalls_ms,
-           "save_sync_ms": sync_ms, "pinned_copy_ms": pinned_ms,
+           "save_sync_ms": sync_ms,
            "restore_ram_ms": restore_ram_ms,
            "restore_disk_ms": restore_disk_ms, "supervised_run_s": run_s,
            "uninterrupted_run_s": ref_s, "phase_s": phase_s, "peak_memory_gb": peak_gb}

@@ -160,18 +160,15 @@ class CheckpointManager:
                 out.append(int(suffix))
         return sorted(out)
 
-    def restore(self, step: int, template: Params,
-                shardings: Optional[Params] = None) -> tuple[Params, dict]:
+    def restore(self, step: int, template: Params) -> tuple[Params, dict]:
         """Load leaves (RAM cache first, then disk) into ``template``'s own
         tensors, in place and on their device, and return ``template``.
 
         Each leaf is copied in, so the template never shares memory with the
         RAM cache: an in-place optimizer step after a restore leaves the
-        cached snapshot as it was. ``shardings`` (re-sharding for an elastic
-        restart) waits for the port's device mesh (ROADMAP Queue 1 item 12)."""
-        if shardings is not None:
-            raise NotImplementedError("elastic restore (shardings) is ROADMAP "
-                                      "Queue 1 item 12")
+        cached snapshot as it was. Re-sharding for an elastic restart (the
+        reference's ``shardings`` argument) waits for the port's device mesh
+        (ROADMAP Queue 1 item 12)."""
         if step in self.ram_cache:
             leaves, extra = self.ram_cache[step]
             logger.info("checkpoint %d restored from RAM cache", step)

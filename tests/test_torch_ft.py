@@ -6,8 +6,8 @@ tests/test_checkpoint.py, the aliasing of the RAM cache with a state updated
 in place, and checkpoints crossing between the two packages both ways).
 
 The elastic case of tests/test_checkpoint.py (restore under another
-sharding) waits for the port's device mesh (ROADMAP Queue 1 item 12): here
-the ``shardings`` argument raises."""
+sharding) waits for the port's device mesh (ROADMAP Queue 1 item 12): the
+port's ``restore`` has no ``shardings`` argument yet."""
 import dataclasses
 import json
 import os
@@ -334,14 +334,12 @@ def test_available_steps_skips_malformed_entries(tmp_path):
 
 
 def test_restore_checks_its_template(tmp_path):
-    """Shardings (elastic restore) wait for the mesh; another leaf count, a
-    leaf of another shape, or a template leaf that is not a tensor, raises;
-    a bfloat16 leaf cannot be snapshotted (numpy has no bfloat16)."""
+    """Another leaf count, a leaf of another shape, or a template leaf that
+    is not a tensor, raises; a bfloat16 leaf cannot be snapshotted (numpy
+    has no bfloat16)."""
     mgr = tckpt.CheckpointManager(str(tmp_path), keep=2)
     state = _state()
     mgr.save_sync(1, state)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mgr.restore(1, _zeros_like(state), shardings=_zeros_like(state))
     with pytest.raises(ValueError, match="leaf count"):
         mgr.restore(1, {"w": torch.zeros(64, 32)})
     bad = _zeros_like(state)

@@ -167,6 +167,11 @@ RESUME = {
     # a cordon with no RAM cache: drain the persists, restore from disk
     "disk restore": dict(fault_schedule={13: BY_NAME["ECCError"]}, ram_cache_slots=0),
     "spike rollback": dict(spike_schedule={12 + i: 50.0 for i in range(3)}),
+    # a spike with nothing to roll back to: restart from the seeded init, the
+    # loader skipping the spike's data from step 0 on (the JAX trainer's
+    # init_state drops the skip ranges here; the port applies them)
+    "spike before the first checkpoint": dict(
+        ckpt_every=15, spike_schedule={9 + i: 50.0 for i in range(3)}),
 }
 
 
@@ -175,8 +180,8 @@ def test_resumption_is_exact(case, tmp_path):
     """The supervised run ends with the parameter bits, and the last loss
     recorded for each step, of an uninterrupted run whose loader skips what
     the supervised run's last attempt skipped."""
-    trainer, ckpt = _trainer(tmp_path / "supervised", steps=20, ckpt_every=5,
-                             **RESUME[case])
+    trainer, ckpt = _trainer(tmp_path / "supervised", steps=20,
+                             **{"ckpt_every": 5, **RESUME[case]})
     report, skips = _run(trainer, ckpt)
     kinds = [e.kind for e in report.events]
     assert report.completed and report.final_step == 20 and len(kinds) == 2, kinds
@@ -185,6 +190,8 @@ def test_resumption_is_exact(case, tmp_path):
         assert event.resumed_from == 0
     elif case == "spike rollback":
         assert event.kind == "spike" and skips and event.resumed_from <= 12
+    elif case == "spike before the first checkpoint":
+        assert event.kind == "spike" and skips and event.resumed_from == 0
     else:
         assert event.kind == "failure" and event.resumed_from == 10
     if case == "disk restore":
