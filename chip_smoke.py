@@ -5,13 +5,17 @@
 Builds the port's kernels from the sources in this checkout (one ``nvcc``
 per CUDA source, all started together), holds each one against its plain
 PyTorch version on the card (the flash-attention and RMSNorm backward
-kernels too, each with a negative control), then drives four paths at full
-width and depth (random weights from a seed):
+kernels too, each with a negative control; the flash forward at head dims
+64, 80 and 128, its LSE entry at 80 too, and that the backward at 80 raises
+before anything launches), then drives four paths at full width and depth
+(random weights from a seed):
 
   * serving, through ``repro_torch.launch.serve.ServeSession``: smollm-360m
-    (flash attention, RMSNorm) and mamba2-1.3b (SSD scan, RMSNorm). For each
-    it checks the launch counts, the token stream, the cache against a full
-    forward, and the card against the CPU;
+    (flash attention at head dim 64, RMSNorm), mamba2-1.3b (SSD scan,
+    RMSNorm) and h2o-danube-1.8b (flash attention at head dim 80 with its
+    4096 window, RMSNorm). For each it checks the launch counts, the token
+    stream, the cache against a full forward (danube also across its
+    window: a 6144-token prompt), and the card against the CPU;
   * training, through ``repro_torch.train.make_train_step``: 8 AdamW steps
     of smollm-360m, 8 x 2048 tokens in 2 microbatches (flash attention and
     RMSNorm forward and backward). It checks the launches of every step,
@@ -32,15 +36,18 @@ It prints:
     per CUDA kernel its registers, shared memory and spills (``nvcc -Xptxas
     -v``) and counts of the SASS opcodes that show its design (wgmma, TMA,
     mbarrier, mma.sync, cp.async, ldmatrix; ``cuobjdump -sass``),
-  * one line per check, the end-to-end prefill/decode tokens/s (median of
-    warm repeats), the train step's wall, tokens/s and peak memory, a
+  * one line per check, the wall time of each phase, the serving
+    sessions' build time and peak memory, the end-to-end prefill/decode
+    tokens/s (median of warm repeats), the train step's wall, tokens/s and
+    peak memory, a
     torch.profiler breakdown of one prefill, eight decode steps and one
     train step (device busy time, launches, top kernels), and the
     supervised run's events, checkpoint times and walls,
   * a JSON line ``{"end_to_end": {path: ...}}``,
   * a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-    four paths (``launches``, their sum, and ``launches_by_path``), error,
-    time, plain time, bound and library time,
+    paths (``launches``, their sum, and ``launches_by_path``), error, time,
+    plain time, bound and library time (the flash forward's at head dim 80
+    under ``d80``),
   * last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, if there is no GPU, if the port's
@@ -48,6 +55,7 @@ package is not beside this file, or if any check fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -111,6 +119,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, rounds: int = 5,
     return sorted(times)[len(times) // 2]
 
 
+@contextlib.contextmanager
+def phase(name: str):
+    """Prints the phase's wall time when it ends (not when it fails)."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # what was built
 # ---------------------------------------------------------------------------
@@ -127,8 +143,9 @@ SASS_REQUIRED = {"flash_attention": ("HGMMA", "UTMALDG", "SYNCS"),
 def report_build() -> None:
     """Per kernel of each CUDA source: registers, shared memory and spills as
     ``nvcc -Xptxas -v`` printed them, and counts of the SASS opcodes above
-    (``cuobjdump -sass``). Fails if a library lacks an opcode its design
-    needs."""
+    (``cuobjdump -sass``), and per wgmma kernel (each head dim apart) its
+    HGMMA count. Fails if a library lacks an opcode its design needs, or a
+    wgmma kernel issues no HGMMA."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -159,6 +176,19 @@ def report_build() -> None:
         check(all(counts[op] > 0 for op in SASS_REQUIRED[name]),
               f"{name}: the compiled library contains "
               f"{', '.join(SASS_REQUIRED[name])}")
+        # every kernel named *_wgmma<D, flag>, each instantiation apart (the
+        # head dims among them), issues HGMMA
+        wgmma = {}
+        for fn in sass.split("Function : ")[1:]:
+            m = re.search(r"([a-z_]+_wgmma)ILi(\d+)ELb(\d)E", fn.split("\n", 1)[0])
+            if m:
+                key = f"{m.group(1)}<{m.group(2)}, {bool(int(m.group(3)))}>"
+                wgmma[key] = len(re.findall(r"\bHGMMA\b", fn))
+        if "HGMMA" in SASS_REQUIRED[name]:
+            print(f"sass {name} HGMMA by kernel: "
+                  + ", ".join(f"{k} {n}" for k, n in sorted(wgmma.items())), flush=True)
+            check(bool(wgmma) and all(n > 0 for n in wgmma.values()),
+                  f"{name}: each of its {len(wgmma)} wgmma kernels issues HGMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -194,9 +224,27 @@ def excess(out, ref, limit) -> tuple[float, float]:
     return d.max().item(), ratio.max().item()
 
 
+def _flash_limit(torch, q, k, v, qp, kp, ref, kw):
+    """The per-element limit of check_flash and what it says (see there)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    if q.dtype == torch.float32:
+        return 1e-4, "max_abs <= 1e-4"
+    abs_v = flash_attention_ref(q, k, v.abs(), qp, kp, **kw).float()
+    return (BF16_RTOL * ref.float().abs() + 2.0 ** -8 * abs_v,
+            "|d| <= 2**-6 |ref| + 2**-8 attn(|v|) and max_abs <= 2e-2")
+
+
+def _flash_worst(torch, out, ref, limit) -> tuple[float, float]:
+    err, worst = excess(out, ref, limit)
+    if out.dtype == torch.bfloat16:
+        worst = max(worst, err / BF16_MAX_ABS)
+    return err, worst
+
+
 def check_flash(torch) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_ref
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_with_lse)
     from repro_torch.models.attention import _mask
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -208,6 +256,11 @@ def check_flash(torch) -> dict:
     # it is within 2**-8 * sum(p |v|) / l = 2**-8 A of the plain version. The
     # limit holds for any data, and in late rows, whose outputs are small, it
     # is far below 2e-2: a far kv tile dropped or misweighted fails it there.
+    # Every case but "main" and "danube" (the model's contiguous layout)
+    # reads q through strides. The D = 80 cases also run the LSE entry: its
+    # output must equal the serving entry's, its lse the plain version's
+    # within 1e-4 (fp32 on both sides; ex2.approx and summation order, ~1e-6
+    # of a value of ~10), +inf in the same rows.
     cases = [
         # name, B, Sq, Skv, H, KV, D, dtype, causal, window, softcap
         ("main", BATCH, PROMPT, PROMPT, 15, 5, 64, torch.bfloat16, True, 0, 0.0),
@@ -224,11 +277,21 @@ def check_flash(torch) -> dict:
         ("per_batch_pos", 3, 150, 300, 15, 5, 64, torch.bfloat16, True, 0, 0.0),
         ("bf16_masked", 1, 70, 150, 4, 2, 128, torch.bfloat16, True, 0, 0.0),
         ("d128_window24", 2, 300, 300, 8, 2, 128, torch.bfloat16, True, 24, 0.0),
+        # head dim 80: h2o-danube-1.8b's prefill shape, then the edge cases
+        ("danube", BATCH, PROMPT, PROMPT, 32, 8, 80, torch.bfloat16, True, 4096, 0.0),
+        ("d80_ragged", 2, 33, 130, 4, 1, 80, torch.bfloat16, True, 0, 0.0),
+        ("d80_window24", 2, 200, 200, 32, 8, 80, torch.bfloat16, True, 24, 0.0),
+        ("d80_softcap30", 2, 200, 200, 32, 8, 80, torch.bfloat16, True, 0, 30.0),
+        ("d80_noncausal", 2, 96, 160, 8, 2, 80, torch.bfloat16, False, 0, 0.0),
+        ("d80_fp32", 2, 257, 257, 32, 8, 80, torch.float32, True, 0, 0.0),
+        ("d80_fp32_masked", 1, 70, 150, 4, 2, 80, torch.float32, True, 0, 0.0),
+        ("d80_bf16_masked", 1, 70, 150, 4, 2, 80, torch.bfloat16, True, 0, 0.0),
+        ("d80_per_batch_pos", 3, 150, 300, 32, 8, 80, torch.bfloat16, True, 0, 0.0),
     ]
     row = None
     for name, B, Sq, Skv, H, KV, D, dtype, causal, window, softcap in cases:
         q, k, v = _attn_inputs(torch, g, B, Sq, Skv, H, KV, D, dtype,
-                               strided=name != "main")
+                               strided=name not in ("main", "danube"))
         off = max(Skv - Sq, 0)          # queries sit at the tail of the keys
         qp = torch.arange(off, off + Sq, dtype=torch.int32, device="cuda")
         kp = torch.arange(Skv, dtype=torch.int32, device="cuda")
@@ -237,20 +300,14 @@ def check_flash(torch) -> dict:
             kp[-40:] = -1
             qp = torch.arange(Sq, dtype=torch.int32, device="cuda") - 5
         qp, kp = qp.expand(B, Sq), kp.expand(B, Skv)
-        if name == "per_batch_pos":     # row 1's keys 37 later, row 2's queries 50 earlier
+        if name.endswith("per_batch_pos"):   # row 1's keys 37 later, row 2's queries 50 earlier
             kp = kp + torch.tensor([0, 37, 0], dtype=torch.int32, device="cuda")[:, None]
             qp = qp - torch.tensor([0, 0, 50], dtype=torch.int32, device="cuda")[:, None]
         kw = dict(causal=causal, window=window, softcap=softcap)
         out = flash_attention(q, k, v, qp, kp, **kw)
-        ref = flash_attention_ref(q, k, v, qp, kp, **kw)
-        if dtype == torch.float32:
-            err, worst = excess(out, ref, 1e-4)
-            what = "max_abs <= 1e-4"
-        else:
-            abs_v = flash_attention_ref(q, k, v.abs(), qp, kp, **kw).float()
-            err, worst = excess(out, ref, BF16_RTOL * ref.float().abs() + 2.0 ** -8 * abs_v)
-            worst = max(worst, err / BF16_MAX_ABS)
-            what = "|d| <= 2**-6 |ref| + 2**-8 attn(|v|) and max_abs <= 2e-2"
+        ref, ref_lse = flash_attention_ref(q, k, v, qp, kp, return_lse=True, **kw)
+        limit, what = _flash_limit(torch, q, k, v, qp, kp, ref, kw)
+        err, worst = _flash_worst(torch, out, ref, limit)
         check(out.dtype == q.dtype and out.shape == q.shape
               and bool(torch.isfinite(out).all()) and worst <= 1.0,
               f"flash_attention {name}: max_abs_err {err:.3e}, worst |d|/limit "
@@ -258,14 +315,30 @@ def check_flash(torch) -> dict:
         if name.endswith("_masked"):
             dead = out[:, :10].abs().max().item()   # q_pos < 10: nothing visible
             check(dead == 0.0, f"flash_attention fully masked rows are 0 ({dead})")
-        if name != "main":
+        if D == 80:
+            out_l, lse = flash_attention_with_lse(q, k, v, qp, kp, **kw)
+            inf_k, inf_r = torch.isinf(lse), torch.isinf(ref_lse)
+            lse_err = (lse[~inf_r] - ref_lse[~inf_r]).abs().max().item()
+            check(torch.equal(out_l, out) and torch.equal(inf_k, inf_r)
+                  and bool((lse[inf_k] > 0).all()) and lse_err <= 1e-4,
+                  f"flash_attention LSE entry {name}: output equal to the serving "
+                  f"entry's, lse max_abs_err {lse_err:.3e} <= 1e-4, +inf in the same "
+                  f"{int(inf_r.sum())} rows")
+        if name not in ("main", "danube"):
             continue
         ms = time_ms(lambda: flash_attention(q, k, v, qp, kp, **kw))
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, qp, kp, **kw), iters=5,
                            rounds=3)
+        # library: SDPA on the same inputs, held to the kernel's limits
+        # first. The window does not bite at these lengths (S = 1024 <
+        # 4096), so is_causal is the same function.
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        library = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        lerr, lworst = _flash_worst(torch, library().transpose(1, 2), ref, limit)
+        check(lworst <= 1.0, f"SDPA {name}: max_abs_err {lerr:.3e}, worst |d|/limit "
+                             f"{lworst:.3f} <= 1 (the kernel's limits)")
+        lib_ms = time_ms(library)
         # the work these inputs need: 4*D operations per visible (q, kv)
         # pair and head (QK^T and PV); each input read once, output written once
         pairs = _mask(qp[:, :, None], kp[:, None, :], window, causal).sum().item()
@@ -273,15 +346,49 @@ def check_flash(torch) -> dict:
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, qp, kp))
         bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]) * 1e3
         by = "operations" if ops / PEAK_OPS["bfloat16"] > nbytes / HBM_BYTES_PER_S else "bytes"
-        print(f"flash_attention main (B={B} S={Sq} H={H} KV={KV} D={D} bf16 causal): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}; {ops:.4e} ops, {nbytes} bytes)", flush=True)
-        row = {"name": "flash_attention", "route": "cuda",
-               "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-               "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        shape = (f"B={B} S={Sq} H={H} KV={KV} D={D} bf16 causal"
+                 + (f" window {window}" if window else ""))
+        print(f"flash_attention {name} ({shape}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{ops:.4e} ops, {nbytes} bytes; {100 * bound / ms:.1f}% of it)", flush=True)
+        timed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        if name == "main":
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention/kernel.py:92", **timed}
+        else:                           # the D = 80 kernel at danube's shape
+            row["d80"] = {"shape": shape, **timed}
     return row
+
+
+def check_flash_d80_backward_raises(torch) -> None:
+    """The backward kernel has no head dim 80 (ROADMAP Queue 2 item A): the
+    backward entry raises, and so does the autograd path, before the
+    forward launches anything."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = _attn_inputs(torch, g, 2, 64, 64, 4, 2, 80, torch.bfloat16)
+    pos = torch.arange(64, dtype=torch.int32, device="cuda")
+    lse = torch.zeros((2, 4, 64), dtype=torch.float32, device="cuda")
+    msgs = []
+    try:
+        flash_attention_bwd(q, k, v, q, lse, q, pos, pos)
+    except NotImplementedError as e:
+        msgs.append(str(e))
+    before = {n: fn.launches for n, fn in _counters().items()}
+    lse_before = flash_attention.lse_launches
+    try:
+        with torch.enable_grad():
+            flash_attention(q.requires_grad_(True), k, v, pos, pos)
+    except NotImplementedError as e:
+        msgs.append(str(e))
+    torch.cuda.synchronize()
+    after = {n: fn.launches for n, fn in _counters().items()}
+    check(len(msgs) == 2 and all("Queue 2 item A" in m for m in msgs)
+          and after == before and flash_attention.lse_launches == lse_before,
+          f"flash_attention D = 80: the backward entry and the autograd path raise "
+          f"naming Queue 2 item A, and no kernel launched ({msgs[-1] if msgs else None})")
 
 
 def check_rmsnorm(torch) -> dict:
@@ -699,7 +806,13 @@ def check_rmsnorm_bwd(torch) -> dict:
 # the slice end to end
 # ---------------------------------------------------------------------------
 
-ARCHS = ("smollm-360m", "mamba2-1.3b")
+ARCHS = ("smollm-360m", "mamba2-1.3b", "h2o-danube-1.8b")
+# The served arch with a sliding window, and the checks that cross it: a
+# cache parity run of one 6144-token prompt (past the 4096 window, so
+# prefill masks up to 2048 positions of a late query and the ring has
+# wrapped) and GEN decode steps; and its card-vs-CPU check (2 layers, a
+# 600-token prompt) with the window cut to 256
+WINDOW_ARCH, CROSS_PROMPT, CARD_VS_CPU_WINDOW = "h2o-danube-1.8b", 6144, 256
 TRAIN_PATH = "train smollm-360m"
 
 
@@ -749,11 +862,14 @@ def serve_path(torch, arch: str) -> tuple[dict, object, dict, torch.Tensor]:
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
     counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sess = ServeSession(arch)
     cfg = sess.cfg
+    n_params = sum(t.numel() for t in sess.model.parameters())
     print(f"ServeSession {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.dtype}, built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{n_params} parameters, {cfg.dtype}, built in {time.perf_counter() - t0:.1f} s "
+          f"(the seeded init drawn on the host)", flush=True)
     batch = sess.make_batch(BATCH, PROMPT, seed=0)
 
     reset_counters()
@@ -792,28 +908,31 @@ def serve_path(torch, arch: str) -> tuple[dict, object, dict, torch.Tensor]:
     for _ in range(REPEATS - 1):
         prefill.append(sess.prefill(batch).tokens_per_s)
         decode.append(sess.decode_step(GEN)[1].tokens_per_s)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     e2e = {"prefill_tokens_per_s": sorted(prefill)[len(prefill) // 2],
            "decode_tokens_per_s": sorted(decode)[len(decode) // 2],
-           "prefill_samples": prefill, "decode_samples": decode}
+           "prefill_samples": prefill, "decode_samples": decode,
+           "peak_memory_gb": peak_gb}
     print(f"{arch} end to end (B={BATCH}, prompt {PROMPT}, {GEN} steps; median "
           f"of {REPEATS}): prefill {e2e['prefill_tokens_per_s']:.1f} tokens/s "
           f"[{min(prefill):.1f}, {max(prefill):.1f}], decode "
           f"{e2e['decode_tokens_per_s']:.1f} tokens/s [{min(decode):.1f}, "
-          f"{max(decode):.1f}]", flush=True)
+          f"{max(decode):.1f}]; peak memory {peak_gb:.2f} GB (build, prefill, decode)",
+          flush=True)
     seq = torch.cat([batch["tokens"], gen], dim=1)
     return launches, sess, e2e, seq
 
 
-def _parity_errors(model, seq, *, zero_cache=False) -> tuple[list, object]:
-    """max |logits error| of prefill(seq[:, :PROMPT]) and of each decode step
+def _parity_errors(model, seq, *, prompt: int, zero_cache=False) -> tuple[list, object]:
+    """max |logits error| of prefill(seq[:, :prompt]) and of each decode step
     against one full forward of ``seq``; and that forward's logits. With
     ``zero_cache``, every floating-point cache leaf is zeroed after the
     prefill: a fault the check must catch."""
     import torch
     full = model.forward_logits({"tokens": seq}).float()
-    logits, caches = model.prefill({"tokens": seq[:, :PROMPT]},
+    logits, caches = model.prefill({"tokens": seq[:, :prompt]},
                                    max_cache_len=seq.shape[1])
-    errs = [(logits.float() - full[:, PROMPT - 1]).abs().max().item()]
+    errs = [(logits.float() - full[:, prompt - 1]).abs().max().item()]
     if zero_cache:
         with torch.no_grad():
             for seg in caches:
@@ -822,10 +941,27 @@ def _parity_errors(model, seq, *, zero_cache=False) -> tuple[list, object]:
                         for t in leaves.values():
                             if t.is_floating_point():
                                 t.zero_()
-    for t in range(PROMPT, seq.shape[1]):
+    for t in range(prompt, seq.shape[1]):
         logits, caches = model.decode_step(caches, seq[:, t], t)
         errs.append((logits.float() - full[:, t]).abs().max().item())
     return errs, full
+
+
+def _check_fp32_parity(torch, label: str, m32, seq, prompt: int):
+    """The fp32 rule of check_cache_parity on ``seq``, with its zeroed-cache
+    control; returns the full forward's fp32 logits."""
+    errs32, full32 = _parity_errors(m32, seq, prompt=prompt)
+    broken, _ = _parity_errors(m32, seq, prompt=prompt, zero_cache=True)
+    scale = full32.abs().max().item()
+    limit = 2.0 ** -10 * scale
+    check(max(errs32) <= limit and bool(torch.isfinite(full32).all()),
+          f"{label}: cache parity (fp32, full width and depth): max_abs logits "
+          f"err {max(errs32):.3e} <= 2**-10 max|logit| = {limit:.4e} over "
+          f"prefill + {len(errs32) - 1} steps")
+    check(max(broken[1:]) > limit,
+          f"{label}: cache parity fails a zeroed cache: max_abs logits err "
+          f"{max(broken[1:]):.3e} > {limit:.4e} over {len(broken) - 1} steps")
+    return full32
 
 
 def check_cache_parity(torch, arch, sess, seq) -> None:
@@ -846,28 +982,35 @@ def check_cache_parity(torch, arch, sess, seq) -> None:
         right cache: limit max(0.25, 2 e), e being the largest distance
         between the bf16 and the fp32 full forwards over the same positions.
         In mamba's 48 layers bf16 rounding alone moves logits by O(1) (e ~3
-        at max |logit| ~10), as large as a cache fault."""
+        at max |logit| ~10), as large as a cache fault.
+
+    At 1024 + 32 tokens danube's 4096 window masks nothing, so for it the
+    fp32 rule runs once more across the window: batch 1, a CROSS_PROMPT
+    prompt and GEN steps, seeded random tokens. Prefill then masks up to
+    2048 positions of a late query in the kernel, the 4096-slot ring has
+    wrapped before decode, and decode writes over its oldest slots."""
     from repro_torch.models import Model
     g = torch.Generator().manual_seed(5)
     tail = torch.randint(0, sess.cfg.vocab_size, (seq.shape[0], seq.shape[1] - PROMPT),
                          generator=g, dtype=seq.dtype)
     seq = torch.cat([seq[:, :PROMPT], tail.to(seq.device)], dim=1)
-    errs, full = _parity_errors(sess.model, seq)
+    errs, full = _parity_errors(sess.model, seq, prompt=PROMPT)
     m32 = Model(dataclasses.replace(sess.cfg, dtype="float32"), device=sess.device,
                 seed=sess._seed)                   # the session's weights
-    errs32, full32 = _parity_errors(m32, seq)
-    broken, _ = _parity_errors(m32, seq, zero_cache=True)
-    del m32
+    full32 = _check_fp32_parity(torch, arch, m32, seq, PROMPT)
     scale = full32.abs().max().item()
-    limit = 2.0 ** -10 * scale
     noise = (full[:, PROMPT - 1:] - full32[:, PROMPT - 1:]).abs().max().item()
-    check(max(errs32) <= limit and bool(torch.isfinite(full32).all()),
-          f"{arch}: cache parity (fp32, full width and depth): max_abs logits "
-          f"err {max(errs32):.3e} <= 2**-10 max|logit| = {limit:.4e} over "
-          f"prefill + {len(errs32) - 1} steps")
-    check(max(broken[1:]) > limit,
-          f"{arch}: cache parity fails a zeroed cache: max_abs logits err "
-          f"{max(broken[1:]):.3e} > {limit:.4e} over {len(broken) - 1} steps")
+    del full32
+    if arch == WINDOW_ARCH:
+        t0 = time.perf_counter()
+        cross = torch.randint(0, sess.cfg.vocab_size, (1, CROSS_PROMPT + GEN),
+                              generator=torch.Generator().manual_seed(8), dtype=seq.dtype)
+        _check_fp32_parity(torch, f"{arch} across the window (B=1, {CROSS_PROMPT}-token "
+                           f"prompt, window {sess.cfg.attention.sliding_window})", m32,
+                           cross.to(seq.device), CROSS_PROMPT)
+        print(f"{arch}: the window-crossing parity took {time.perf_counter() - t0:.1f} s, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del m32
     print(f"{arch}: cache parity errors by step (bf16): "
           f"{' '.join(f'{e:.3f}' for e in errs)}", flush=True)
     check(max(errs) <= max(0.25, 2 * noise) and bool(torch.isfinite(full).all()),
@@ -892,7 +1035,10 @@ def check_card_vs_cpu(torch, arch: str) -> None:
     TF32 off for matrix products on the card). The inputs: a forward over
     2 x (prompt + 8) tokens, a prefill of the prompt, 8 decode steps; the
     prompt is 64 tokens for smollm-360m and 600 for mamba2-1.3b (three SSD
-    chunks of 256, the last ragged).
+    chunks of 256, the last ragged) and h2o-danube-1.8b. For danube the
+    window is cut from 4096 to 256 (CARD_VS_CPU_WINDOW): the kernel then
+    masks by the window in the forward and the prefill, the 256-slot ring
+    has rolled before decode, and the CPU's plain attention stays small.
 
     Prefill and decode agree within 1e-3. So does the forward, unless the
     model's own fp32 rounding is larger: where there are SSD layers, the
@@ -909,6 +1055,12 @@ def check_card_vs_cpu(torch, arch: str) -> None:
 
     prompt, cache_len = (64, 128) if arch == "smollm-360m" else (600, 0)
     cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32")
+    cut = "2 layers"
+    if arch == WINDOW_ARCH:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, sliding_window=CARD_VS_CPU_WINDOW))
+        cut += (f", sliding_window {get_arch(arch).attention.sliding_window} -> "
+                f"{CARD_VS_CPU_WINDOW}, prompt {prompt}")
     cpu = Model(cfg, device="cpu", seed=1)
     gpu = Model(cfg, device="cuda", seed=2)
     gpu.load_params(cpu.params_tree())
@@ -934,7 +1086,7 @@ def check_card_vs_cpu(torch, arch: str) -> None:
         errs.append((lg.cpu() - lc).abs().max().item())
     limit = max(1e-3, 4 * rechunk)
     check(err <= limit and max(errs) <= 1e-3,
-          f"{arch}: card vs CPU (fp32, 2 layers): forward {err:.3e} <= "
+          f"{arch}: card vs CPU (fp32, full width; cut: {cut}): forward {err:.3e} <= "
           f"max(1e-3, 4 x rechunk {rechunk:.3e}) = {limit:.3e}, prefill/decode "
           f"{max(errs):.3e} <= 1e-3")
 
@@ -1378,28 +1530,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     try:
-        t0 = time.perf_counter()
-        build.build_all()
-        print(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-        report_build()
-        rows = [check_flash(torch), check_flash_bwd(torch), check_rmsnorm(torch),
-                check_rmsnorm_bwd(torch), check_ssd(torch)]
+        with phase("build"):
+            t0 = time.perf_counter()
+            build.build_all()
+            print(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+            report_build()
+        rows = []
+        for check_kernel in (check_flash, check_flash_bwd, check_rmsnorm, check_rmsnorm_bwd,
+                             check_ssd):
+            with phase(check_kernel.__name__):
+                rows.append(check_kernel(torch))
+        with phase("check_flash_d80_backward_raises"):
+            check_flash_d80_backward_raises(torch)
         torch.cuda.empty_cache()
         launches, e2e = {}, {}
-        for arch in ARCHS:
-            launches[arch], sess, e2e[arch], seq = serve_path(torch, arch)
-            check_cache_parity(torch, arch, sess, seq)
-            e2e[arch]["profile"] = where_the_time_goes(torch, sess)
+        for arch in ARCHS:        # one session per arch, reused by its checks
+            with phase(f"serve {arch}"):
+                launches[arch], sess, e2e[arch], seq = serve_path(torch, arch)
+            with phase(f"cache parity {arch}"):
+                check_cache_parity(torch, arch, sess, seq)
+            with phase(f"profile {arch}"):
+                e2e[arch]["profile"] = where_the_time_goes(torch, sess)
             del sess, seq
             torch.cuda.empty_cache()
-        launches[TRAIN_PATH], e2e[TRAIN_PATH] = train_path(torch)
-        launches[SUPERVISED_PATH], e2e[SUPERVISED_PATH] = supervised_train_path(torch, card)
+        with phase(TRAIN_PATH):
+            launches[TRAIN_PATH], e2e[TRAIN_PATH] = train_path(torch)
+        with phase(SUPERVISED_PATH):
+            launches[SUPERVISED_PATH], e2e[SUPERVISED_PATH] = supervised_train_path(torch,
+                                                                                    card)
         for arch in ARCHS:
-            check_card_vs_cpu(torch, arch)
-        check_train_card_vs_cpu(torch)
+            with phase(f"card vs CPU {arch}"):
+                check_card_vs_cpu(torch, arch)
+        with phase("train card vs CPU"):
+            check_train_card_vs_cpu(torch)
     except CheckFailed:
         return 1
+    print(f"all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     for row in rows:
         row["launches_by_path"] = {path: launches[path][row["name"]]
                                    for path in (*ARCHS, TRAIN_PATH, SUPERVISED_PATH)}

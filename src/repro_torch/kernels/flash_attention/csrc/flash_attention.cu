@@ -8,8 +8,8 @@
 // q_pos - kv_pos < window), fp32 m/l/acc, output acc / max(l, 1e-20), so a
 // fully masked row gives 0.
 //
-// What bounds it on the H100: operations. At the serving shape (S=1024,
-// D=64) each q/k/v byte feeds hundreds of multiply-adds, well above the
+// What bounds it on the H100: operations. At the serving shapes (S=1024,
+// D=64 or 80) each q/k/v byte feeds hundreds of multiply-adds, well above the
 // ~295 operations per byte where the card stops being memory-bound, so the
 // design is about keeping the tensor cores fed.
 //
@@ -52,16 +52,29 @@
 //    visible range [lo, hi] of kv positions, computed once per row. Soft-cap
 //    runs only when softcap > 0.
 //  * Shared memory: Q 128 x D bf16, and per stage a K and a V tile of BKV x
-//    D bf16 (BKV = 128 for D = 64, 64 for D = 128), each as 64-column
-//    (128-byte) blocks: D = 64 is 16 + 3 x (16 + 16) = 112 KB, D = 128 is
-//    32 + 3 x (16 + 16) = 128 KB, plus 1 KB to align the ring to 1024 bytes
-//    (the swizzle's period), within the 227 KB a block may have.
+//    D bf16 (BKV = 128 for D = 64, 64 for D = 80 and 128), each as
+//    64-column (128-byte) blocks: D = 64 is 16 + 3 x (16 + 16) = 112 KB,
+//    D = 80 and 128 are 32 + 3 x (16 + 16) = 128 KB, plus 1 KB to align the
+//    ring to 1024 bytes (the swizzle's period), within the 227 KB a block
+//    may have.
+//  * D = 80 (h2o-danube-1.8b): a 160-byte row does not fit one 128-byte
+//    swizzle atom, so each tile takes two 64-column blocks, as at D = 128.
+//    TMA reads columns 64-127 of the 80-wide tensor map for the second and
+//    fills columns 80-127 with zeros (they count in the barrier's bytes).
+//    Q K^T takes 5 k-steps of 16 columns, so it never reads the zeros. P V
+//    runs m64n80k16 (wgmma_rs_n80): 40 accumulators a thread, its B
+//    descriptor spanning both blocks of V, of which it reads columns 0-79.
+//    The other design, n128 over the zero-padded V, would waste 48 of 128
+//    columns of P V (19% of the tile's products) and hold 64 accumulators
+//    a thread for 40 that are used. The padding costs shared memory and TMA
+//    writes into it, not device-memory bytes.
 //
 // fp32 inputs run flash_fwd_simt: fp32 arithmetic on the CUDA cores, so the
 // result keeps fp32 precision (a bf16 or tf32 product would not). Its
 // ceiling is the 67 TFLOP/s fp32 rate. The model serves in bf16; fp32 is for
 // checks. One block per (q tile of 64 rows, q head, batch); a kv tile that no
-// row of the block can see is skipped whole.
+// row of the block can see is skipped whole. Each thread owns D / 16 output
+// columns (5 at D = 80).
 //
 // Inputs are read in the model's (B, S, H, D) layout through strides, so the
 // wrapper makes no transposed or padded copies. Ragged Sq and Skv are masked
@@ -138,10 +151,12 @@ constexpr int STAGES = 3;          // K/V ring depth
 
 template <int D>
 struct TcCfg {
+  static_assert(D == 64 || D == 80 || D == 128, "flash_fwd_wgmma: head dim 64, 80 or 128");
   static constexpr int BKV = D == 64 ? 128 : 64;  // kv rows per tile
-  static constexpr int CB = D / 64;               // 64-column (128-byte) blocks
-  static constexpr int Q_BYTES = TC_BQ * D * 2;
-  static constexpr int KV_BYTES = BKV * D * 2;    // one K or one V tile
+  static constexpr int CB = (D + 63) / 64;        // 64-column (128-byte) blocks
+  // bytes as TMA writes them: whole blocks, zeros past column D
+  static constexpr int Q_BYTES = TC_BQ * CB * 128;
+  static constexpr int KV_BYTES = BKV * CB * 128; // one K or one V tile
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES;
 };
 
@@ -284,7 +299,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma(
     uint32_t pa[BKV / 16][4];      // P of the previous tile, the A fragment of its P V
 
     // S = Q K^T for the tile in `stage` (D/16 k-steps of 16 columns, 32
-    // bytes, in a 128-byte block), committed as one group. The first k-step
+    // bytes, in a 128-byte block; at D = 80 the fifth is the second
+    // block's first), committed as one group. The first k-step
     // overwrites s (scale-d = 0): no other instruction may write an
     // accumulator inside the pipeline (ptxas C7515 would serialize every
     // wgmma).
@@ -464,6 +480,7 @@ __global__ void __launch_bounds__(SIMT_THREADS) flash_fwd_simt(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, int window, float scale,
     float softcap, float* __restrict__ lse) {
+  static_assert(D % 16 == 0, "flash_fwd_simt: 16 threads share a row's D columns");
   constexpr int CO = D / 16;          // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -636,6 +653,7 @@ int launch_wgmma(const Args& a) {
 template <int D, bool LSE>
 int launch_simt(const Args& a) {
   constexpr int bytes = simt_smem_floats<D>() * (int)sizeof(float);
+  static_assert(bytes <= 232448, "flash_fwd_simt: above the 227 KB a block may opt in to");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_simt<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -653,8 +671,10 @@ int run(const Args& a, int D, int dtype) {
   if (a.B <= 0 || a.Sq <= 0 || a.Skv <= 0 || a.KV <= 0 || a.H % a.KV != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64) return launch_simt<64, LSE>(a);
+  if (dtype == 0 && D == 80) return launch_simt<80, LSE>(a);
   if (dtype == 0 && D == 128) return launch_simt<128, LSE>(a);
   if (dtype == 1 && D == 64) return launch_wgmma<64, LSE>(a);
+  if (dtype == 1 && D == 80) return launch_wgmma<80, LSE>(a);
   if (dtype == 1 && D == 128) return launch_wgmma<128, LSE>(a);
   return (int)cudaErrorInvalidValue;
 }

@@ -204,9 +204,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// m64n80k16 with A from registers, for P V at head dim 80: 40 accumulators,
+// and a B descriptor that spans two 64-column blocks (LBO apart), of which
+// the second is read for its first 16 columns only
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// N selects the instruction; an N without one is a compile-time error
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: no m64nNk16 form for this N");
   if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
   else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
   else wgmma_ss_n128(d, da, db, scale_d);
@@ -215,7 +240,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs: no m64nNk16 form for this N");
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
@@ -280,7 +307,7 @@ EncodeTiledFn encode_tiled() {
 // A 4-D map over a (B, S, heads, D) bf16 tensor with element strides st[0..2]
 // (batch, sequence, head) and a dense D; boxes of 64 columns (128 bytes,
 // the 128-byte swizzle's width) x 1 head x `rows` rows x 1 batch. Rows past
-// S read as zeros. A size-1 dim's stride is free in torch; TMA wants it
+// S, and columns past D (the second box of a D = 80 row), read as zeros. A size-1 dim's stride is free in torch; TMA wants it
 // nonzero, so it gets the extent below it.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
               const long long* st, int rows) {

@@ -10,6 +10,10 @@ through a ``torch.autograd.Function``: its forward launches the kernel's
 LSE-writing entry and keeps (q, k, v, out, lse) for :func:`flash_attention_bwd`.
 Otherwise (serving, ``torch.no_grad()``) it launches the serving entry,
 which writes no LSE.
+
+The forward kernels take head dims 64, 80 and 128; the backward kernel 64
+and 128. Off the CPU, a gradient at another head dim raises before the
+forward launches anything (ROADMAP Queue 2 item A).
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)      # the forward kernels
+BWD_HEAD_DIMS = (64, 128)      # the backward kernel
 
 
 def _check(q, k, v, q_positions, kv_positions, window) -> None:
@@ -44,6 +49,15 @@ def _check(q, k, v, q_positions, kv_positions, window) -> None:
                          "(strides multiples of 8 elements)")
     if not isinstance(window, int):
         raise TypeError("flash_attention: window must be a Python int")
+
+
+def _check_bwd_head_dim(q) -> None:
+    """The backward kernel's head dims; called for any device but the CPU,
+    whose plain gradient takes every D."""
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head dim {q.shape[-1]} not in {BWD_HEAD_DIMS}; "
+            "the backward kernel at other head dims is ROADMAP Queue 2 item A")
 
 
 def _positions(q, k, q_positions, kv_positions):
@@ -87,6 +101,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_positions, kv_positions, *,
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, q_positions,
                                        kv_positions, causal=causal, window=window,
                                        softcap=softcap)
+    _check_bwd_head_dim(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     _check(q, k, v, q_positions, kv_positions, window)
@@ -133,6 +148,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, KV, D); positions (B, S*) or (S*,)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type != "cpu":
+            _check_bwd_head_dim(q)     # before the forward launches
         return _FlashAttention.apply(q, k, v, q_positions, kv_positions, causal,
                                      window, softcap)
     return _forward(q, k, v, q_positions, kv_positions, causal, window, softcap,

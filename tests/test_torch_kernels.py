@@ -39,6 +39,8 @@ def _np(x) -> np.ndarray:
     (1, 96, 96, 8, 8, 16),
     (2, 33, 128, 4, 1, 64),     # ragged Sq, MQA
     (1, 128, 48, 6, 3, 24),     # ragged Skv
+    (2, 64, 64, 8, 2, 80),      # head dim 80 (h2o-danube-1.8b), GQA
+    (1, 40, 100, 4, 1, 80),     # head dim 80, ragged Sq and Skv
 ])
 @pytest.mark.parametrize("causal,window,softcap", [
     (True, 0, 0.0), (True, 24, 0.0), (False, 0, 0.0), (True, 0, 30.0),
@@ -96,6 +98,38 @@ def test_wrappers_reject_devices_without_a_kernel():
         flash_attention(q, q, q, pos, pos)
     with pytest.raises(ValueError, match="unsupported device"):
         rmsnorm(torch.zeros((3, 8), device="meta"), torch.ones(8, device="meta"))
+
+
+def test_head_dim_80_gradient_raises_before_any_launch(monkeypatch):
+    """The backward kernel has no head dim 80 (ROADMAP Queue 2 item A). Off
+    the CPU (meta tensors stand in for the card's), the autograd path raises
+    before its forward reaches the kernel, and so does the backward entry;
+    no launch is counted. The forward alone takes head dim 80, and on the
+    CPU the plain gradient takes it too (test_flash_attention_grad_matches_jax)."""
+    from repro_torch.kernels.flash_attention import kernel, ops
+    launched = []
+    monkeypatch.setattr(kernel, "flash_attention_cuda", lambda *a, **k: launched.append(a))
+    monkeypatch.setattr(kernel, "flash_attention_bwd_cuda", lambda *a, **k: launched.append(a))
+    q = torch.zeros((1, 4, 2, 80), device="meta", requires_grad=True)
+    pos = torch.arange(4, device="meta")
+    lse = torch.zeros((1, 2, 4), device="meta")
+    counts = (ops.flash_attention.launches, ops.flash_attention.lse_launches,
+              ops.flash_attention_bwd.launches)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item A"):
+        ops.flash_attention(q, q, q, pos, pos)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item A"):
+        ops.flash_attention_bwd(q, q, q, q, lse, q, pos, pos)
+    assert not launched
+    assert (ops.flash_attention.launches, ops.flash_attention.lse_launches,
+            ops.flash_attention_bwd.launches) == counts
+    for d in (64, 128):     # the backward's head dims pass this check
+        q = torch.zeros((1, 4, 2, d), device="meta", requires_grad=True)
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.flash_attention(q, q, q, pos, pos)
+    with torch.no_grad():   # no gradient: head dim 80 reaches the forward
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.flash_attention(torch.zeros((1, 4, 2, 80), device="meta"),
+                                *[torch.zeros((1, 4, 2, 80), device="meta")] * 2, pos, pos)
 
 
 @pytest.mark.parametrize("shape", [(4, 17, 96), (2, 100), (3, 5, 7, 32)])
@@ -177,6 +211,7 @@ def _attn_case(B, Sq, Skv, H, KV, D, masked, seed):
     (2, 16, 16, 4, 1, 16, True, 0, 20.0, False),    # soft-cap, MQA
     (2, 12, 30, 4, 2, 16, True, 0, 0.0, True),      # ragged, per-batch positions
     (1, 18, 26, 2, 1, 8, False, 0, 0.0, False),     # not causal
+    (2, 20, 20, 4, 2, 80, True, 8, 0.0, False),     # head dim 80, window
 ])
 def test_flash_attention_grad_matches_jax(B, Sq, Skv, H, KV, D, causal, window, softcap,
                                           masked):

@@ -85,6 +85,20 @@ def test_parity_smollm_smoke():
     _parity(_f32(jax_get_smoke("smollm-360m")), atol=1e-4)
 
 
+# The five dense archs of the zoo, each on its smoke config, long enough to
+# cross its windows: danube's smoke (window 64) prefills 70 tokens into its
+# 64-slot ring and decodes to 80; gemma3's (local window 32, every 6th layer
+# global) prefills 40 and decodes to 48.
+DENSE_ZOO = {"h2o-danube-1.8b": dict(S=80, k=70), "internlm-7b": {},
+             "gemma3-27b": dict(S=48, k=40), "nemotron-4-15b": {}, "internlm-123b": {}}
+
+
+@pytest.mark.parametrize("arch", list(DENSE_ZOO))
+def test_parity_dense_zoo_smoke(arch):
+    """fp32, atol 1e-4, as test_parity_smollm_smoke."""
+    _parity(_f32(jax_get_smoke(arch)), atol=1e-4, **DENSE_ZOO[arch])
+
+
 def test_parity_swa(tiny_cfg):
     cfg = _f32(tiny_cfg, name="swa", attention=dataclasses.replace(
         tiny_cfg.attention, sliding_window=8))
@@ -186,6 +200,12 @@ def test_params_tree_and_specs_match_jax():
 
 def test_mamba_params_tree_and_specs_match_jax():
     assert _specs_match_jax("mamba2-1.3b") == 1_343_790_080
+
+
+def test_danube_params_tree_and_specs_match_jax():
+    """Full size, specs only: 24 layers of 69.5 M, untied embedding and LM
+    head of 81.9 M each."""
+    assert _specs_match_jax("h2o-danube-1.8b") == 1_831_201_280
 
 
 def test_init_is_deterministic_per_seed():

@@ -48,6 +48,22 @@ def test_session_tokens_equal_jax_greedy_generate():
         greedy_generate(sess.model, batch["tokens"], 8).numpy(), np.asarray(want))
 
 
+def test_danube_session_tokens_equal_jax_greedy_generate():
+    """h2o-danube-1.8b's smoke config (sliding window 64 on every layer):
+    a 70-token prompt fills the 64-slot ring past its window before decode."""
+    cfg = dataclasses.replace(jax_get_smoke("h2o-danube-1.8b"), dtype="float32")
+    jm = JaxModel(cfg, ParallelConfig(remat="none", moe_impl="dense"))
+    params = jm.init(jax.random.PRNGKey(6))
+    sess = ServeSession("h2o-danube-1.8b", smoke=True, device="cpu", dtype="float32")
+    sess.model.load_params(params_from_numpy(jax.tree_util.tree_map(np.asarray, params)))
+    batch = sess.make_batch(2, 70, seed=2)
+    with runtime.pallas_enabled(interpret=True):
+        want = jax_greedy_generate(jm, params, jnp.asarray(batch["tokens"].numpy()), 8)
+    gen, _, _ = sess.generate(batch, 8)
+    np.testing.assert_array_equal(gen.numpy(), np.asarray(want))
+    assert sess._caches[0][0]["kv"]["k"].shape[2] == cfg.attention.sliding_window
+
+
 def test_serve_session_stream_is_contiguous():
     """Two chained decode_step calls equal one generate of the same total."""
     sess = ServeSession("smollm-360m", smoke=True, device="cpu")
