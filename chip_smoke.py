@@ -47,7 +47,7 @@ It prints:
   * a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
     paths (``launches``, their sum, and ``launches_by_path``), error, time,
     plain time, bound and library time (the flash forward's at head dim 80
-    under ``d80``),
+    under ``d80``, the RMSNorm forward's at danube's width under ``d2560``),
   * last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, if there is no GPU, if the port's
@@ -392,6 +392,11 @@ def check_flash_d80_backward_raises(torch) -> None:
 
 
 def check_rmsnorm(torch) -> dict:
+    """The RMSNorm forward at the widths the serving paths give it (960
+    smollm-360m, 2048 mamba2-1.3b, 2560 h2o-danube-1.8b; Triton specializes
+    its block and warps per width), each at the prefill's, a ragged and the
+    decode step's row count. Timed at smollm's prefill shape (the row) and
+    at danube's (under ``d2560``)."""
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
@@ -399,49 +404,55 @@ def check_rmsnorm(torch) -> dict:
     # fp32: max-abs <= 1e-5 (summation order). bf16: both sides round the
     # same fp32 value, so per element |d| <= 2**-6 |ref| (see BF16_RTOL),
     # plus 1e-6 for the fp32 noise of elements near 0, and max-abs <= 2e-2
-    d = 960
-    scale = 0.5 + 0.05 * torch.randn(d, generator=g, device="cuda")
     row = None
-    for rows, dtype in [(BATCH * PROMPT, torch.bfloat16), (BATCH * PROMPT, torch.float32),
-                        (37, torch.bfloat16), (37, torch.float32), (BATCH, torch.bfloat16)]:
-        x = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
-        out = rmsnorm(x, scale)
-        ref = rmsnorm_ref(x, scale)
-        if dtype == torch.float32:
-            err, worst = excess(out, ref, 1e-5)
-        else:
-            err, worst = excess(out, ref, BF16_RTOL * ref.float().abs() + 1e-6)
-            worst = max(worst, err / BF16_MAX_ABS)
-        check(out.dtype == dtype and out.shape == x.shape and worst <= 1.0,
-              f"rmsnorm ({rows}, {d}) {dtype}: max_abs_err {err:.3e}, worst "
-              f"|d|/limit {worst:.3f} <= 1")
-        if (rows, dtype) != (BATCH * PROMPT, torch.bfloat16):
-            continue
-        # library_ms: F.rms_norm takes bf16 rows with an fp32 scale and
-        # returns bf16 (PyTorch warns that it cannot use its fused kernel for
-        # the mixed dtypes); held to the kernel's limits before it is timed
-        library = lambda: torch.nn.functional.rms_norm(x, (d,), scale, 1e-5)  # noqa: E731
-        lib_out = library()
-        lerr, lworst = excess(lib_out, ref, BF16_RTOL * ref.float().abs() + 1e-6)
-        check(lib_out.dtype == dtype and lib_out.shape == x.shape
-              and max(lworst, lerr / BF16_MAX_ABS) <= 1.0,
-              f"F.rms_norm ({rows}, {d}) {dtype}, fp32 scale: max_abs_err {lerr:.3e}, worst "
-              f"|d|/limit {lworst:.3f} <= 1 (the kernel's limits)")
-        ms = time_ms(lambda: rmsnorm(x, scale), iters=50)
-        plain_ms = time_ms(lambda: rmsnorm_ref(x, scale), iters=50)
-        lib_ms = time_ms(library, iters=50)
-        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
-        ops = 4 * x.numel() + rows          # square, add, 2 multiplies; rsqrt
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS["float32"] else "operations"
-        print(f"rmsnorm main ({rows}, {d}) bf16: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-              f"{nbytes} bytes)", flush=True)
-        row = {"name": "rmsnorm", "route": "triton",
-               "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
-               "replaces": "src/repro/kernels/rmsnorm/kernel.py:29",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    for d in (960, 2048, 2560):
+        scale = 0.5 + 0.05 * torch.randn(d, generator=g, device="cuda")
+        for rows, dtype in [(BATCH * PROMPT, torch.bfloat16), (BATCH * PROMPT, torch.float32),
+                            (37, torch.bfloat16), (37, torch.float32),
+                            (BATCH, torch.bfloat16), (BATCH, torch.float32)]:
+            x = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
+            out = rmsnorm(x, scale)
+            ref = rmsnorm_ref(x, scale)
+            if dtype == torch.float32:
+                err, worst = excess(out, ref, 1e-5)
+            else:
+                err, worst = excess(out, ref, BF16_RTOL * ref.float().abs() + 1e-6)
+                worst = max(worst, err / BF16_MAX_ABS)
+            check(out.dtype == dtype and out.shape == x.shape and worst <= 1.0,
+                  f"rmsnorm ({rows}, {d}) {dtype}: max_abs_err {err:.3e}, worst "
+                  f"|d|/limit {worst:.3f} <= 1")
+            if (rows, dtype) != (BATCH * PROMPT, torch.bfloat16) or d == 2048:
+                continue
+            # library_ms: F.rms_norm takes bf16 rows with an fp32 scale and
+            # returns bf16 (PyTorch warns that it cannot use its fused kernel
+            # for the mixed dtypes); held to the kernel's limits before it is
+            # timed
+            library = lambda: torch.nn.functional.rms_norm(x, (d,), scale, 1e-5)  # noqa: E731
+            lib_out = library()
+            lerr, lworst = excess(lib_out, ref, BF16_RTOL * ref.float().abs() + 1e-6)
+            check(lib_out.dtype == dtype and lib_out.shape == x.shape
+                  and max(lworst, lerr / BF16_MAX_ABS) <= 1.0,
+                  f"F.rms_norm ({rows}, {d}) {dtype}, fp32 scale: max_abs_err {lerr:.3e}, "
+                  f"worst |d|/limit {lworst:.3f} <= 1 (the kernel's limits)")
+            ms = time_ms(lambda: rmsnorm(x, scale), iters=50)
+            plain_ms = time_ms(lambda: rmsnorm_ref(x, scale), iters=50)
+            lib_ms = time_ms(library, iters=50)
+            nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
+            ops = 4 * x.numel() + rows          # square, add, 2 multiplies; rsqrt
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS["float32"] else "operations"
+            name = "main" if d == 960 else f"d{d}"
+            print(f"rmsnorm {name} ({rows}, {d}) bf16: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                  f"{nbytes} bytes)", flush=True)
+            timed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            if d == 960:
+                row = {"name": "rmsnorm", "route": "triton",
+                       "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
+                       "replaces": "src/repro/kernels/rmsnorm/kernel.py:29", **timed}
+            else:                       # danube's prefill shape
+                row[name] = {"shape": f"({rows}, {d}) bf16", **timed}
     return row
 
 
@@ -807,12 +818,13 @@ def check_rmsnorm_bwd(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 ARCHS = ("smollm-360m", "mamba2-1.3b", "h2o-danube-1.8b")
-# The served arch with a sliding window, and the checks that cross it: a
-# cache parity run of one 6144-token prompt (past the 4096 window, so
-# prefill masks up to 2048 positions of a late query and the ring has
-# wrapped) and GEN decode steps; and its card-vs-CPU check (2 layers, a
-# 600-token prompt) with the window cut to 256
-WINDOW_ARCH, CROSS_PROMPT, CARD_VS_CPU_WINDOW = "h2o-danube-1.8b", 6144, 256
+# The checks that cross a sliding window, run for every served arch that has
+# one: a cache parity run of one prompt of CROSS_PROMPT_PER_WINDOW windows
+# (at danube's 4096, 6144 tokens: prefill masks up to 2048 positions of a
+# late query and the ring has wrapped) and GEN decode steps; and the
+# card-vs-CPU check (2 layers, a 600-token prompt) with the window cut to
+# CARD_VS_CPU_WINDOW
+CROSS_PROMPT_PER_WINDOW, CARD_VS_CPU_WINDOW = 1.5, 256
 TRAIN_PATH = "train smollm-360m"
 
 
@@ -984,9 +996,9 @@ def check_cache_parity(torch, arch, sess, seq) -> None:
         In mamba's 48 layers bf16 rounding alone moves logits by O(1) (e ~3
         at max |logit| ~10), as large as a cache fault.
 
-    At 1024 + 32 tokens danube's 4096 window masks nothing, so for it the
-    fp32 rule runs once more across the window: batch 1, a CROSS_PROMPT
-    prompt and GEN steps, seeded random tokens. Prefill then masks up to
+    At 1024 + 32 tokens danube's 4096 window masks nothing, so for an arch
+    with a sliding window the fp32 rule runs once more across it: batch 1,
+    a prompt of CROSS_PROMPT_PER_WINDOW windows (6144 tokens) and GEN steps, seeded random tokens. Prefill then masks up to
     2048 positions of a late query in the kernel, the 4096-slot ring has
     wrapped before decode, and decode writes over its oldest slots."""
     from repro_torch.models import Model
@@ -1001,13 +1013,15 @@ def check_cache_parity(torch, arch, sess, seq) -> None:
     scale = full32.abs().max().item()
     noise = (full[:, PROMPT - 1:] - full32[:, PROMPT - 1:]).abs().max().item()
     del full32
-    if arch == WINDOW_ARCH:
+    window = sess.cfg.attention.sliding_window if sess.cfg.attention else 0
+    if window > 0:
         t0 = time.perf_counter()
-        cross = torch.randint(0, sess.cfg.vocab_size, (1, CROSS_PROMPT + GEN),
+        cross_prompt = int(CROSS_PROMPT_PER_WINDOW * window)
+        cross = torch.randint(0, sess.cfg.vocab_size, (1, cross_prompt + GEN),
                               generator=torch.Generator().manual_seed(8), dtype=seq.dtype)
-        _check_fp32_parity(torch, f"{arch} across the window (B=1, {CROSS_PROMPT}-token "
-                           f"prompt, window {sess.cfg.attention.sliding_window})", m32,
-                           cross.to(seq.device), CROSS_PROMPT)
+        _check_fp32_parity(torch, f"{arch} across the window (B=1, {cross_prompt}-token "
+                           f"prompt, window {window})", m32, cross.to(seq.device),
+                           cross_prompt)
         print(f"{arch}: the window-crossing parity took {time.perf_counter() - t0:.1f} s, "
               f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     del m32
@@ -1038,7 +1052,8 @@ def check_card_vs_cpu(torch, arch: str) -> None:
     chunks of 256, the last ragged) and h2o-danube-1.8b. For danube the
     window is cut from 4096 to 256 (CARD_VS_CPU_WINDOW): the kernel then
     masks by the window in the forward and the prefill, the 256-slot ring
-    has rolled before decode, and the CPU's plain attention stays small.
+    has rolled before decode, and the CPU's plain attention stays small. The
+    same cut applies to any arch with a sliding window.
 
     Prefill and decode agree within 1e-3. So does the forward, unless the
     model's own fp32 rounding is larger: where there are SSD layers, the
@@ -1056,11 +1071,11 @@ def check_card_vs_cpu(torch, arch: str) -> None:
     prompt, cache_len = (64, 128) if arch == "smollm-360m" else (600, 0)
     cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32")
     cut = "2 layers"
-    if arch == WINDOW_ARCH:
+    window = cfg.attention.sliding_window if cfg.attention else 0
+    if window > 0:
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
             cfg.attention, sliding_window=CARD_VS_CPU_WINDOW))
-        cut += (f", sliding_window {get_arch(arch).attention.sliding_window} -> "
-                f"{CARD_VS_CPU_WINDOW}, prompt {prompt}")
+        cut += f", sliding_window {window} -> {CARD_VS_CPU_WINDOW}, prompt {prompt}"
     cpu = Model(cfg, device="cpu", seed=1)
     gpu = Model(cfg, device="cuda", seed=2)
     gpu.load_params(cpu.params_tree())

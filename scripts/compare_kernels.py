@@ -14,10 +14,8 @@ path's shapes (flash: B=4 S=2048 H=15 KV=5 D=64 bf16 causal; RMSNorm:
   * the earlier and the current flash backward, timed in turns (earlier,
     current, current, earlier, earlier, current), each a median of CUDA-event
     rounds as ``chip_smoke.time_ms`` takes it; their dq, dk, dv compared,
-    there and at D = 128 (B=2 S=1024 H=8 KV=2, causal); their SASS compared
-    kernel by kernel, without the kernels' names (which hash the source's
-    path); each profiled once (``chip_smoke.profile_call``: its launches by
-    name);
+    there and at D = 128 (B=2 S=1024 H=8 KV=2, causal), bit for bit; each
+    profiled once (``chip_smoke.profile_call``: its launches by name);
   * the earlier RMSNorm backward under ``chip_smoke.profile_call``, which
     lists its launches (the row pass and the column sum) with their device
     times, the current one likewise, then both versions timed in turns, with
@@ -46,24 +44,6 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (time_ms, profile_call, excess, limits)
-
-
-def _sass(lib: Path) -> list[str]:
-    """The library's SASS, one string per kernel (its instructions, without
-    its name and addresses), sorted."""
-    import re
-    import shutil
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    kernels: list[list[str]] = []
-    for line in text.splitlines():
-        if "Function :" in line:
-            kernels.append([])
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
-        if m and kernels:
-            kernels[-1].append(m.group(1))
-    return sorted("\n".join(k) for k in kernels)
 
 
 def _flash_bwd_entry(src: Path, tag: str):
@@ -129,7 +109,6 @@ def same_bits_d128(torch, earlier) -> None:
 
 
 def flash(torch, old: Path, variants: list[Path]) -> None:
-    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
     entries = {"earlier": _flash_bwd_entry(
@@ -166,12 +145,6 @@ def flash(torch, old: Path, variants: list[Path]) -> None:
               f"dk {diffs[1]:.3e}, dv {diffs[2]:.3e}; same bits "
               f"{all(torch.equal(a, b) for a, b in zip(call(), mine))}", flush=True)
     same_bits_d128(torch, entries["earlier"])
-    old_sass = _sass(build.BUILD_DIR / "libflash_attention_bwd-earlier.so")
-    new_sass = _sass(build.library("flash_attention_bwd"))
-    print(f"flash_attention_bwd SASS: earlier {len(old_sass)} kernels, "
-          f"{sum(k.count(chr(10)) + 1 for k in old_sass)} instructions; current "
-          f"{len(new_sass)}, {sum(k.count(chr(10)) + 1 for k in new_sass)}; identical "
-          f"{old_sass == new_sass}", flush=True)
     turns(torch, "flash_attention_bwd (B=4 S=2048 H=15 KV=5 D=64 bf16 causal)", calls,
           iters=10, sleep_per_iter=2_000_000)
     for name, call in calls.items():
