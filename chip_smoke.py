@@ -6,16 +6,21 @@ Builds the port's kernels from the sources in this checkout (one ``nvcc``
 per CUDA source, all started together), holds each one against its plain
 PyTorch version on the card (the flash-attention and RMSNorm backward
 kernels too, each with a negative control; the flash forward at head dims
-64, 80 and 128, its LSE entry at 80 too, and that the backward at 80 raises
-before anything launches), then drives four paths at full width and depth
-(random weights from a seed):
+64, 80, 128 and 192, its LSE entry at 80 and 192 too, and that the backward
+at 80 and 192 raises before anything launches; RMSNorm at every served
+width), then drives four paths at full width and depth (random weights from
+a seed):
 
   * serving, through ``repro_torch.launch.serve.ServeSession``: smollm-360m
     (flash attention at head dim 64, RMSNorm), mamba2-1.3b (SSD scan,
-    RMSNorm) and h2o-danube-1.8b (flash attention at head dim 80 with its
-    4096 window, RMSNorm). For each it checks the launch counts, the token
-    stream, the cache against a full forward (danube also across its
-    window: a 6144-token prompt), and the card against the CPU;
+    RMSNorm), h2o-danube-1.8b (flash attention at head dim 80 with its
+    4096 window, RMSNorm) and deepseek-v2-lite-16b cut to 8 layers (MLA:
+    flash attention at head dim 192 in prefill, the absorbed-weight decode;
+    MoE with routed and shared experts; RMSNorm at 2048 and 512). For each
+    it checks the launch counts, the token stream, the cache against a full
+    forward (danube also across its window: a 6144-token prompt; deepseek
+    with its routing flips counted, each a near-tie), and the card against
+    the CPU; for deepseek also the gathered MoE decode against the dense;
   * training, through ``repro_torch.train.make_train_step``: 8 AdamW steps
     of smollm-360m, 8 x 2048 tokens in 2 microbatches (flash attention and
     RMSNorm forward and backward). It checks the launches of every step,
@@ -47,7 +52,9 @@ It prints:
   * a JSON line ``{"kernels": [...]}`` with each kernel's launches on the
     paths (``launches``, their sum, and ``launches_by_path``), error, time,
     plain time, bound and library time (the flash forward's at head dim 80
-    under ``d80``, the RMSNorm forward's at danube's width under ``d2560``),
+    under ``d80``, at 192 as its own row ``flash_attention_d192`` with the
+    deepseek path's launches; the RMSNorm forward's at danube's width under
+    ``d2560`` and at MLA's kv_norm under ``d512``),
   * last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, if there is no GPU, if the port's
@@ -56,6 +63,7 @@ package is not beside this file, or if any check fails.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -168,6 +176,11 @@ def report_build() -> None:
         for k in kernels:
             print(f"ptxas {name}: {k['fn'][:100]}: {k['regs']} registers, {k['smem']} bytes "
                   f"static smem, spill stores/loads {k['spill']} bytes", flush=True)
+        fwd192 = [k for k in kernels if "flash_fwd_wgmmaILi192E" in k["fn"]]
+        if name == "flash_attention":
+            check(len(fwd192) == 2 and all(k["spill"] == "0/0" for k in fwd192),
+                  f"{name}: both D = 192 wgmma kernels (with and without LSE) spill "
+                  f"nothing ({', '.join(k['regs'] + ' registers' for k in fwd192)})")
         sass = subprocess.run([cuobjdump, "-sass", str(build.library(name))],
                               capture_output=True, text=True, timeout=300).stdout
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
@@ -241,7 +254,7 @@ def _flash_worst(torch, out, ref, limit) -> tuple[float, float]:
     return err, worst
 
 
-def check_flash(torch) -> dict:
+def check_flash(torch) -> list:
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_with_lse)
@@ -256,9 +269,9 @@ def check_flash(torch) -> dict:
     # it is within 2**-8 * sum(p |v|) / l = 2**-8 A of the plain version. The
     # limit holds for any data, and in late rows, whose outputs are small, it
     # is far below 2e-2: a far kv tile dropped or misweighted fails it there.
-    # Every case but "main" and "danube" (the model's contiguous layout)
-    # reads q through strides. The D = 80 cases also run the LSE entry: its
-    # output must equal the serving entry's, its lse the plain version's
+    # Every case but the timed ones (the model's contiguous layout) reads q
+    # through strides. The D = 80 and D = 192 cases also run the LSE entry:
+    # its output must equal the serving entry's, its lse the plain version's
     # within 1e-4 (fp32 on both sides; ex2.approx and summation order, ~1e-6
     # of a value of ~10), +inf in the same rows.
     cases = [
@@ -287,11 +300,24 @@ def check_flash(torch) -> dict:
         ("d80_fp32_masked", 1, 70, 150, 4, 2, 80, torch.float32, True, 0, 0.0),
         ("d80_bf16_masked", 1, 70, 150, 4, 2, 80, torch.bfloat16, True, 0, 0.0),
         ("d80_per_batch_pos", 3, 150, 300, 32, 8, 80, torch.bfloat16, True, 0, 0.0),
+        # head dim 192: deepseek-v2-lite-16b's MLA prefill shape (qk 128 + 64,
+        # v padded to 192), in bf16 and fp32, then the edge cases
+        ("deepseek", BATCH, PROMPT, PROMPT, 16, 16, 192, torch.bfloat16, True, 0, 0.0),
+        ("d192_fp32_deepseek", BATCH, PROMPT, PROMPT, 16, 16, 192, torch.float32, True, 0,
+         0.0),
+        ("d192_ragged", 2, 33, 130, 4, 1, 192, torch.bfloat16, True, 0, 0.0),
+        ("d192_fp32_ragged", 2, 33, 130, 4, 1, 192, torch.float32, True, 0, 0.0),
+        ("d192_bf16_masked", 1, 70, 150, 4, 2, 192, torch.bfloat16, True, 0, 0.0),
+        ("d192_fp32_masked", 1, 70, 150, 4, 2, 192, torch.float32, True, 0, 0.0),
+        ("d192_window24", 2, 200, 200, 16, 16, 192, torch.bfloat16, True, 24, 0.0),
+        ("d192_noncausal", 2, 96, 160, 8, 2, 192, torch.bfloat16, False, 0, 0.0),
+        ("d192_per_batch_pos", 3, 150, 300, 16, 16, 192, torch.bfloat16, True, 0, 0.0),
     ]
-    row = None
+    timed_cases = ("main", "danube", "deepseek")
+    rows = []
     for name, B, Sq, Skv, H, KV, D, dtype, causal, window, softcap in cases:
         q, k, v = _attn_inputs(torch, g, B, Sq, Skv, H, KV, D, dtype,
-                               strided=name not in ("main", "danube"))
+                               strided=name not in timed_cases)
         off = max(Skv - Sq, 0)          # queries sit at the tail of the keys
         qp = torch.arange(off, off + Sq, dtype=torch.int32, device="cuda")
         kp = torch.arange(Skv, dtype=torch.int32, device="cuda")
@@ -315,7 +341,7 @@ def check_flash(torch) -> dict:
         if name.endswith("_masked"):
             dead = out[:, :10].abs().max().item()   # q_pos < 10: nothing visible
             check(dead == 0.0, f"flash_attention fully masked rows are 0 ({dead})")
-        if D == 80:
+        if D in (80, 192):
             out_l, lse = flash_attention_with_lse(q, k, v, qp, kp, **kw)
             inf_k, inf_r = torch.isinf(lse), torch.isinf(ref_lse)
             lse_err = (lse[~inf_r] - ref_lse[~inf_r]).abs().max().item()
@@ -324,14 +350,14 @@ def check_flash(torch) -> dict:
                   f"flash_attention LSE entry {name}: output equal to the serving "
                   f"entry's, lse max_abs_err {lse_err:.3e} <= 1e-4, +inf in the same "
                   f"{int(inf_r.sum())} rows")
-        if name not in ("main", "danube"):
+        if name not in timed_cases:
             continue
         ms = time_ms(lambda: flash_attention(q, k, v, qp, kp, **kw))
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, qp, kp, **kw), iters=5,
                            rounds=3)
         # library: SDPA on the same inputs, held to the kernel's limits
-        # first. The window does not bite at these lengths (S = 1024 <
-        # 4096), so is_causal is the same function.
+        # first (it takes head dims up to 256). The window does not bite at
+        # these lengths (S = 1024 < 4096), so is_causal is the same function.
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         library = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
@@ -353,50 +379,57 @@ def check_flash(torch) -> dict:
               f"{ops:.4e} ops, {nbytes} bytes; {100 * bound / ms:.1f}% of it)", flush=True)
         timed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
-        if name == "main":
-            row = {"name": "flash_attention", "route": "cuda",
-                   "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-                   "replaces": "src/repro/kernels/flash_attention/kernel.py:92", **timed}
-        else:                           # the D = 80 kernel at danube's shape
-            row["d80"] = {"shape": shape, **timed}
-    return row
+        src = {"route": "cuda",
+               "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention/kernel.py:92"}
+        if name == "main":              # deepseek's D = 192 launches go to their own row
+            rows.append({"name": "flash_attention", **src, **timed,
+                         "paths": (*ARCHS, TRAIN_PATH, SUPERVISED_PATH)})
+        elif name == "danube":          # the D = 80 kernel at danube's shape
+            rows[0]["d80"] = {"shape": shape, **timed}
+        else:                           # the D = 192 kernel at deepseek's shape
+            rows.append({"name": "flash_attention_d192", **src, "shape": shape, **timed,
+                         "counter": "flash_attention", "paths": (DEEPSEEK_PATH,)})
+    return rows
 
 
-def check_flash_d80_backward_raises(torch) -> None:
-    """The backward kernel has no head dim 80 (ROADMAP Queue 2 item A): the
-    backward entry raises, and so does the autograd path, before the
-    forward launches anything."""
+def check_flash_backward_raises(torch) -> None:
+    """The backward kernel has no head dim 80 or 192 (ROADMAP Queue 2 item
+    A): at each, the backward entry raises, and so does the autograd path,
+    before the forward launches anything."""
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     g = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = _attn_inputs(torch, g, 2, 64, 64, 4, 2, 80, torch.bfloat16)
-    pos = torch.arange(64, dtype=torch.int32, device="cuda")
-    lse = torch.zeros((2, 4, 64), dtype=torch.float32, device="cuda")
-    msgs = []
-    try:
-        flash_attention_bwd(q, k, v, q, lse, q, pos, pos)
-    except NotImplementedError as e:
-        msgs.append(str(e))
-    before = {n: fn.launches for n, fn in _counters().items()}
-    lse_before = flash_attention.lse_launches
-    try:
-        with torch.enable_grad():
-            flash_attention(q.requires_grad_(True), k, v, pos, pos)
-    except NotImplementedError as e:
-        msgs.append(str(e))
-    torch.cuda.synchronize()
-    after = {n: fn.launches for n, fn in _counters().items()}
-    check(len(msgs) == 2 and all("Queue 2 item A" in m for m in msgs)
-          and after == before and flash_attention.lse_launches == lse_before,
-          f"flash_attention D = 80: the backward entry and the autograd path raise "
-          f"naming Queue 2 item A, and no kernel launched ({msgs[-1] if msgs else None})")
+    for D in (80, 192):
+        q, k, v = _attn_inputs(torch, g, 2, 64, 64, 4, 2, D, torch.bfloat16)
+        pos = torch.arange(64, dtype=torch.int32, device="cuda")
+        lse = torch.zeros((2, 4, 64), dtype=torch.float32, device="cuda")
+        msgs = []
+        try:
+            flash_attention_bwd(q, k, v, q, lse, q, pos, pos)
+        except NotImplementedError as e:
+            msgs.append(str(e))
+        before = {n: fn.launches for n, fn in _counters().items()}
+        lse_before = flash_attention.lse_launches
+        try:
+            with torch.enable_grad():
+                flash_attention(q.requires_grad_(True), k, v, pos, pos)
+        except NotImplementedError as e:
+            msgs.append(str(e))
+        torch.cuda.synchronize()
+        after = {n: fn.launches for n, fn in _counters().items()}
+        check(len(msgs) == 2 and all("Queue 2 item A" in m for m in msgs)
+              and after == before and flash_attention.lse_launches == lse_before,
+              f"flash_attention D = {D}: the backward entry and the autograd path raise "
+              f"naming Queue 2 item A, and no kernel launched ({msgs[-1] if msgs else None})")
 
 
 def check_rmsnorm(torch) -> dict:
     """The RMSNorm forward at the widths the serving paths give it (960
-    smollm-360m, 2048 mamba2-1.3b, 2560 h2o-danube-1.8b; Triton specializes
-    its block and warps per width), each at the prefill's, a ragged and the
-    decode step's row count. Timed at smollm's prefill shape (the row) and
-    at danube's (under ``d2560``)."""
+    smollm-360m, 2048 mamba2-1.3b and deepseek-v2-lite-16b, 2560
+    h2o-danube-1.8b, 512 deepseek's MLA ``kv_norm``; Triton specializes its
+    block and warps per width), each at the prefill's, a ragged and the
+    decode step's row count. Timed at smollm's prefill shape (the row), at
+    danube's (under ``d2560``) and at deepseek's kv_norm (under ``d512``)."""
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
@@ -405,7 +438,7 @@ def check_rmsnorm(torch) -> dict:
     # same fp32 value, so per element |d| <= 2**-6 |ref| (see BF16_RTOL),
     # plus 1e-6 for the fp32 noise of elements near 0, and max-abs <= 2e-2
     row = None
-    for d in (960, 2048, 2560):
+    for d in (960, 2048, 2560, 512):
         scale = 0.5 + 0.05 * torch.randn(d, generator=g, device="cuda")
         for rows, dtype in [(BATCH * PROMPT, torch.bfloat16), (BATCH * PROMPT, torch.float32),
                             (37, torch.bfloat16), (37, torch.float32),
@@ -451,7 +484,7 @@ def check_rmsnorm(torch) -> dict:
                 row = {"name": "rmsnorm", "route": "triton",
                        "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
                        "replaces": "src/repro/kernels/rmsnorm/kernel.py:29", **timed}
-            else:                       # danube's prefill shape
+            else:                       # danube's prefill shape, deepseek's kv_norm
                 row[name] = {"shape": f"({rows}, {d}) bf16", **timed}
     return row
 
@@ -826,6 +859,97 @@ ARCHS = ("smollm-360m", "mamba2-1.3b", "h2o-danube-1.8b")
 # CARD_VS_CPU_WINDOW
 CROSS_PROMPT_PER_WINDOW, CARD_VS_CPU_WINDOW = 1.5, 256
 TRAIN_PATH = "train smollm-360m"
+# deepseek-v2-lite-16b served at full width, cut to its dense first layer and
+# 7 MoE layers (94.2 GB at full depth does not fit the card), registered under
+# this name; its fp32 parity model has the same depth
+DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-v2-lite-16b", 8
+DEEPSEEK_PATH = f"{DEEPSEEK}-{DEEPSEEK_LAYERS}l"
+SERVED = (*ARCHS, DEEPSEEK_PATH)
+# MoE routing is discontinuous: where the 6th and 7th of 64 router
+# probabilities nearly tie, summation order alone may swap the two experts.
+# A token whose top-k set differs between two runs, at the first layer where
+# it differs, must be such a near-tie on the reference side: its k-th minus
+# (k+1)-th probability <= NEAR_TIE. From there on the token's hidden state
+# differs by a whole expert's share, so its later layers may route apart
+# without a near-tie.
+NEAR_TIE = 1e-4
+
+
+def register_deepseek_cut() -> None:
+    """Registers DEEPSEEK_PATH: deepseek-v2-lite-16b at every published width,
+    cut to DEEPSEEK_LAYERS layers, served through ServeSession as any arch."""
+    from repro_torch.config import get_arch, register_arch
+    full = get_arch(DEEPSEEK)
+    register_arch(DEEPSEEK_PATH)(lambda: dataclasses.replace(
+        full, name=DEEPSEEK_PATH, num_layers=DEEPSEEK_LAYERS))
+    cut, ref = dataclasses.asdict(get_arch(DEEPSEEK_PATH)), dataclasses.asdict(full)
+    differ = sorted(k for k in ref if cut[k] != ref[k])
+    check(differ == ["name", "num_layers"] and cut["num_layers"] == DEEPSEEK_LAYERS,
+          f"{DEEPSEEK_PATH}: equal to {DEEPSEEK} field for field but {differ} "
+          f"(num_layers {ref['num_layers']} -> {cut['num_layers']})")
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Records (top-k indices, router probabilities) of every MoE router
+    call, in call order, on the host."""
+    from repro_torch.models import moe
+    calls, route = [], moe._route
+
+    def recorded(router_w, x, cfg):
+        gates, idx, probs = route(router_w, x, cfg)
+        calls.append((idx.cpu(), probs.cpu()))
+        return gates, idx, probs
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def _routes_by_layer(calls, n_layers: int, B: int) -> list:
+    """Per MoE layer, (indices (B, S, k), probabilities (B, S, E)) from the
+    router calls of one forward, or of a prefill and its decode steps."""
+    import torch
+    out = []
+    for layer in range(n_layers):
+        mine = calls[layer::n_layers]
+        idx = torch.cat([i.reshape(B, -1, i.shape[-1]) for i, _ in mine], dim=1)
+        probs = torch.cat([p.reshape(B, -1, p.shape[-1]) for _, p in mine], dim=1)
+        out.append((idx, probs))
+    return out
+
+
+def route_flips(label: str, ref_calls, calls, n_layers: int, B: int, k: int):
+    """Compares two runs' top-k expert sets token by token, per MoE layer in
+    order (ref: the reference side). A token's first flip must be a near-tie
+    on the reference side (NEAR_TIE); a flip of a token that an earlier
+    layer flipped already is its consequence. Prints the flips per layer,
+    first flips apart; returns (B, S) True where a token flipped in any
+    layer."""
+    import torch
+    flipped, per_layer, first, worst = None, [], [], 0.0
+    for (ri, rp), (ti, _) in zip(_routes_by_layer(ref_calls, n_layers, B),
+                                 _routes_by_layer(calls, n_layers, B)):
+        f = (ri.sort(-1).values != ti.sort(-1).values).any(-1)
+        new = f if flipped is None else f & ~flipped
+        top = rp.topk(k + 1, dim=-1).values
+        gap = top[..., k - 1] - top[..., k]
+        if bool(new.any()):
+            worst = max(worst, gap[new].max().item())
+            where = new.nonzero().tolist()[:8]
+            print(f"{label}: MoE layer {len(per_layer)}: first flips at (row, position) "
+                  f"{where}, top-{k} gaps {[f'{gap[b, t].item():.2e}' for b, t in where]}",
+                  flush=True)
+        per_layer.append(int(f.sum()))
+        first.append(int(new.sum()))
+        flipped = f if flipped is None else flipped | f
+    check(worst <= NEAR_TIE,
+          f"{label}: {int(flipped.sum())} of {flipped.numel()} tokens routed apart in "
+          f"{n_layers} MoE layers (flips per layer {per_layer}, first flips {first}); "
+          f"each first flip a near-tie: top-{k} gap <= {worst:.3e} <= {NEAR_TIE} on the "
+          f"reference side")
+    return flipped
 
 
 def _counters() -> dict:
@@ -846,15 +970,21 @@ def reset_counters() -> None:
 def expected_launches(cfg) -> tuple[dict, dict]:
     """Kernel launches per forward (prefill) and per decode step: flash and
     SSD once per attention / mamba layer in a forward and never in decode;
-    RMSNorm for ln1, for ln2 where there is an MLP, for mamba's gated norm,
-    and once for the final norm, in both. Serving launches no backward."""
+    RMSNorm for ln1, for ln2 where there is an MLP (dense or MoE), for
+    mamba's gated norm, and once for the final norm, in both. MLA's latent
+    (``_mla_latent``: ``kv_norm``, and ``q_norm`` with a q LoRA) runs twice
+    per layer in a prefill (the attention and the cache, as the reference
+    does) and once per decode step; a training forward (no cache) runs it
+    once. Serving launches no backward."""
     from repro_torch.models.model import layer_plans
     plans = layer_plans(cfg)
+    attn = sum(p.mixer == "attn" for p in plans)
+    mla = attn * (1 + bool(cfg.attention.q_lora_rank)) \
+        if cfg.attention is not None and cfg.attention.kind == "mla" else 0
     norms = 1 + sum(1 + (p.mlp != "none") + (p.mixer == "mamba") for p in plans)
-    prefill = {"flash_attention": sum(p.mixer == "attn" for p in plans),
-               "ssd": sum(p.mixer == "mamba" for p in plans), "rmsnorm": norms,
-               "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
-    return prefill, dict(prefill, flash_attention=0, ssd=0)
+    prefill = {"flash_attention": attn, "ssd": sum(p.mixer == "mamba" for p in plans),
+               "rmsnorm": norms + 2 * mla, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+    return prefill, dict(prefill, flash_attention=0, ssd=0, rmsnorm=norms + mla)
 
 
 def cache_sizes(sess) -> str:
@@ -935,16 +1065,17 @@ def serve_path(torch, arch: str) -> tuple[dict, object, dict, torch.Tensor]:
     return launches, sess, e2e, seq
 
 
-def _parity_errors(model, seq, *, prompt: int, zero_cache=False) -> tuple[list, object]:
-    """max |logits error| of prefill(seq[:, :prompt]) and of each decode step
-    against one full forward of ``seq``; and that forward's logits. With
-    ``zero_cache``, every floating-point cache leaf is zeroed after the
-    prefill: a fault the check must catch."""
+def _parity_errors(model, seq, *, prompt: int, zero_cache=False):
+    """Per row of ``seq``, max |logits error| of prefill(seq[:, :prompt]) and
+    of each decode step against one full forward of ``seq``, as (B, 1 +
+    steps); and that forward's logits. With ``zero_cache``, every
+    floating-point cache leaf is zeroed after the prefill: a fault the check
+    must catch."""
     import torch
     full = model.forward_logits({"tokens": seq}).float()
     logits, caches = model.prefill({"tokens": seq[:, :prompt]},
                                    max_cache_len=seq.shape[1])
-    errs = [(logits.float() - full[:, prompt - 1]).abs().max().item()]
+    errs = [(logits.float() - full[:, prompt - 1]).abs().amax(-1)]
     if zero_cache:
         with torch.no_grad():
             for seg in caches:
@@ -955,24 +1086,55 @@ def _parity_errors(model, seq, *, prompt: int, zero_cache=False) -> tuple[list, 
                                 t.zero_()
     for t in range(prompt, seq.shape[1]):
         logits, caches = model.decode_step(caches, seq[:, t], t)
-        errs.append((logits.float() - full[:, t]).abs().max().item())
-    return errs, full
+        errs.append((logits.float() - full[:, t]).abs().amax(-1))
+    return torch.stack(errs, dim=1), full
+
+
+def _fp32_twin(model):
+    """The model under its config in fp32, reading the same fp32 masters:
+    what ``Model(fp32 config, seed)`` would rebuild (the same seed draws the
+    same masters), without drawing or holding them a second time."""
+    import torch
+    twin = copy.copy(model)
+    twin.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    twin.dtype = torch.float32
+    twin.params_changed()                # its serving copies: the fp32 masters
+    return twin
 
 
 def _check_fp32_parity(torch, label: str, m32, seq, prompt: int):
     """The fp32 rule of check_cache_parity on ``seq``, with its zeroed-cache
-    control; returns the full forward's fp32 logits."""
-    errs32, full32 = _parity_errors(m32, seq, prompt=prompt)
+    control; returns the full forward's fp32 logits.
+
+    With MoE layers the rule holds the logits of a (row, position) only
+    where no layer's top-k expert set at that token differs between the
+    full forward and the prefill/decode run (route_flips checks that each
+    such flip is a near-tie). A flip changes its own token's hidden state
+    from that layer on; it reaches other tokens only through attention, as
+    one key among hundreds, which the limit absorbs."""
+    with record_routes() as calls:
+        errs32, full32 = _parity_errors(m32, seq, prompt=prompt)
+    held = torch.ones_like(errs32, dtype=torch.bool)
+    n_moe = sum(p.mlp == "moe" for p in m32.plans)
+    if n_moe:       # the full forward's router calls, then the prefill's and decode's
+        flipped = route_flips(f"{label}: cache parity (fp32)", calls[:n_moe],
+                              calls[n_moe:], n_moe, seq.shape[0], m32.cfg.moe.top_k)
+        held = ~flipped[:, prompt - 1:].to(errs32.device)
     broken, _ = _parity_errors(m32, seq, prompt=prompt, zero_cache=True)
     scale = full32.abs().max().item()
     limit = 2.0 ** -10 * scale
-    check(max(errs32) <= limit and bool(torch.isfinite(full32).all()),
+    err = errs32[held].max().item()
+    routed = (f" ({int(held.sum())} of {held.numel()} row logits held, the others at a "
+              f"token whose experts flipped; by row "
+              f"{[f'{e:.2e}' for e in errs32.where(held, 0).amax(1).tolist()]})") if n_moe else ""
+    check(err <= limit and bool(torch.isfinite(full32).all()),
           f"{label}: cache parity (fp32, full width and depth): max_abs logits "
-          f"err {max(errs32):.3e} <= 2**-10 max|logit| = {limit:.4e} over "
-          f"prefill + {len(errs32) - 1} steps")
-    check(max(broken[1:]) > limit,
+          f"err {err:.3e} <= 2**-10 max|logit| = {limit:.4e} over prefill + "
+          f"{errs32.shape[1] - 1} steps{routed}")
+    bad = broken[:, 1:][held[:, 1:]].max().item()
+    check(bad > limit,
           f"{label}: cache parity fails a zeroed cache: max_abs logits err "
-          f"{max(broken[1:]):.3e} > {limit:.4e} over {len(broken) - 1} steps")
+          f"{bad:.3e} > {limit:.4e} over {broken.shape[1] - 1} steps")
     return full32
 
 
@@ -984,8 +1146,9 @@ def check_cache_parity(torch, arch, sess, seq) -> None:
     and GEN seeded random tokens (greedy decoding of random weights repeats
     one token, and rounding drift piles up there).
 
-      * fp32, the session's weights at full width and depth: max |err| <=
-        2**-10 of the largest |logit|. The two sides differ by fp32
+      * fp32, the session's weights at full width and depth (deepseek's cut
+        depth): max |err| <= 2**-10 of the largest |logit|, with MoE routing
+        flips handled as _check_fp32_parity says. The two sides differ by fp32
         summation order: on an H100, smollm read 1.6e-5 against 0.0107 and
         mamba 2.4e-3 against 0.0094. The same run with every cache leaf zeroed after the prefill
         must exceed the limit: the check fails a lost state, conv tail or
@@ -994,21 +1157,21 @@ def check_cache_parity(torch, arch, sess, seq) -> None:
         right cache: limit max(0.25, 2 e), e being the largest distance
         between the bf16 and the fp32 full forwards over the same positions.
         In mamba's 48 layers bf16 rounding alone moves logits by O(1) (e ~3
-        at max |logit| ~10), as large as a cache fault.
+        at max |logit| ~10), as large as a cache fault; in deepseek's MoE
+        layers bf16 rounding also flips experts, which e includes.
 
     At 1024 + 32 tokens danube's 4096 window masks nothing, so for an arch
     with a sliding window the fp32 rule runs once more across it: batch 1,
     a prompt of CROSS_PROMPT_PER_WINDOW windows (6144 tokens) and GEN steps, seeded random tokens. Prefill then masks up to
     2048 positions of a late query in the kernel, the 4096-slot ring has
     wrapped before decode, and decode writes over its oldest slots."""
-    from repro_torch.models import Model
     g = torch.Generator().manual_seed(5)
     tail = torch.randint(0, sess.cfg.vocab_size, (seq.shape[0], seq.shape[1] - PROMPT),
                          generator=g, dtype=seq.dtype)
     seq = torch.cat([seq[:, :PROMPT], tail.to(seq.device)], dim=1)
     errs, full = _parity_errors(sess.model, seq, prompt=PROMPT)
-    m32 = Model(dataclasses.replace(sess.cfg, dtype="float32"), device=sess.device,
-                seed=sess._seed)                   # the session's weights
+    errs = errs.amax(0).tolist()                  # per step, over the rows
+    m32 = _fp32_twin(sess.model)                  # the session's weights
     full32 = _check_fp32_parity(torch, arch, m32, seq, PROMPT)
     scale = full32.abs().max().item()
     noise = (full[:, PROMPT - 1:] - full32[:, PROMPT - 1:]).abs().max().item()
@@ -1031,6 +1194,41 @@ def check_cache_parity(torch, arch, sess, seq) -> None:
           f"{arch}: cache parity (bf16 smoke check, not evidence): max_abs "
           f"logits err {max(errs):.4f} <= max(0.25, 2 x {noise:.4f}), {noise:.4f} "
           f"being bf16 against fp32 in the full forward (max |logit| {scale:.2f})")
+
+
+def check_moe_gather_vs_dense(torch, sess) -> None:
+    """``moe_gather_decode`` against ``moe_dense`` at the decode shape (B =
+    BATCH, one token), on the session's first MoE layer: in bf16 (its
+    serving copies) and fp32 (its masters). Both route the same inputs the
+    same way and compute one function. fp32: max |d| <= 1e-5 max |dense|
+    (summation order). bf16: max |d| <= 2**-6 max |dense|: the dense path
+    rounds each gated hidden unit to bf16 before one product over all
+    experts, the gathered path each expert's output before the gated sum,
+    each a relative 2**-8 per term. Prints both paths' times (the dense one
+    reads every expert's weights, the gathered one top_k per token)."""
+    from repro_torch.models import moe
+    from repro_torch.models.spec import tree_map
+    model, cfg = sess.model, sess.cfg
+    si = next(i for i, seg in enumerate(model.segments) if seg.pattern[0].mlp == "moe")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x32 = torch.randn((BATCH, 1, cfg.d_model), generator=g, device="cuda")
+    for tree, dtype, rtol in ((model._compute, torch.bfloat16, 2.0 ** -6),
+                              (model.params_tree(), torch.float32, 1e-5)):
+        p = tree_map(lambda _, t: t[0], tree["segments"][si][0]["moe"],
+                     is_leaf=lambda t: isinstance(t, torch.Tensor))
+        x = x32.to(dtype)
+        kw = dict(act=cfg.mlp_act, dtype=dtype)
+        dense, aux_d = moe.moe_dense(p, cfg.moe, x, **kw)
+        gather, aux_g = moe.moe_gather_decode(p, cfg.moe, x, **kw)
+        err = (gather.float() - dense.float()).abs().max().item()
+        limit = rtol * dense.float().abs().max().item()
+        dense_ms = time_ms(lambda: moe.moe_dense(p, cfg.moe, x, **kw), iters=10)
+        gather_ms = time_ms(lambda: moe.moe_gather_decode(p, cfg.moe, x, **kw), iters=10)
+        check(err <= limit and torch.equal(aux_d, aux_g),
+              f"{cfg.name}: moe_gather_decode vs moe_dense ({dtype}, B={BATCH}, one token, "
+              f"{cfg.moe.num_experts} experts, top-{cfg.moe.top_k}): max_abs_err {err:.3e} <= "
+              f"{rtol:.3g} max|dense| = {limit:.3e}, aux equal; dense {dense_ms:.4f} ms, "
+              f"gather {gather_ms:.4f} ms")
 
 
 def where_the_time_goes(torch, sess) -> dict:
@@ -1068,7 +1266,7 @@ def check_card_vs_cpu(torch, arch: str) -> None:
     from repro_torch.config import get_arch
     from repro_torch.models import Model
 
-    prompt, cache_len = (64, 128) if arch == "smollm-360m" else (600, 0)
+    prompt, cache_len = (64, 128) if arch in ("smollm-360m", DEEPSEEK) else (600, 0)
     cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32")
     cut = "2 layers"
     window = cfg.attention.sliding_window if cfg.attention else 0
@@ -1081,9 +1279,16 @@ def check_card_vs_cpu(torch, arch: str) -> None:
     gpu.load_params(cpu.params_tree())
     toks = torch.randint(0, cfg.vocab_size, (2, prompt + 8),
                          generator=torch.Generator().manual_seed(3), dtype=torch.int32)
-    ref = cpu.forward_logits({"tokens": toks})
-    out = gpu.forward_logits({"tokens": toks.cuda()}).cpu()
-    err = (out - ref).abs().max().item()
+    n_moe = sum(p.mlp == "moe" for p in cpu.plans)
+    with record_routes() as ref_calls:
+        ref = cpu.forward_logits({"tokens": toks})
+    with record_routes() as calls:
+        out = gpu.forward_logits({"tokens": toks.cuda()}).cpu()
+    held = torch.ones(toks.shape, dtype=torch.bool)
+    if n_moe:
+        held = ~route_flips(f"{arch}: card vs CPU forward", ref_calls, calls, n_moe, 2,
+                            cfg.moe.top_k)
+    err = (out - ref).abs().amax(-1)[held].max().item()
     rechunk = 0.0
     if cfg.ssm is not None:
         half = dataclasses.replace(cfg, ssm=dataclasses.replace(
@@ -1092,18 +1297,30 @@ def check_card_vs_cpu(torch, arch: str) -> None:
         other.load_params(cpu.params_tree())
         rechunk = (other.forward_logits({"tokens": toks}) - ref).abs().max().item()
         del other
-    lc, cc = cpu.prefill({"tokens": toks[:, :prompt]}, max_cache_len=cache_len)
-    lg, cg = gpu.prefill({"tokens": toks[:, :prompt].cuda()}, max_cache_len=cache_len)
-    errs = [(lg.cpu() - lc).abs().max().item()]
-    for t in range(prompt, prompt + 8):
-        lc, cc = cpu.decode_step(cc, toks[:, t], t)
-        lg, cg = gpu.decode_step(cg, toks[:, t].cuda(), t)
-        errs.append((lg.cpu() - lc).abs().max().item())
+    served = {}
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        with record_routes() as served_calls:
+            logits, c = model.prefill({"tokens": toks[:, :prompt].to(dev)},
+                                      max_cache_len=cache_len)
+            out = [logits.cpu()]
+            for t in range(prompt, prompt + 8):
+                logits, c = model.decode_step(c, toks[:, t].to(dev), t)
+                out.append(logits.cpu())
+        served[dev] = (torch.stack(out, dim=1), served_calls)
+    (lc, ref_calls), (lg, calls) = served["cpu"], served["cuda"]
+    held_served = torch.ones(lc.shape[:2], dtype=torch.bool)
+    if n_moe:
+        # the MoE layer is the last: a flip touches only its own token
+        held_served = ~route_flips(f"{arch}: card vs CPU prefill and decode", ref_calls,
+                                   calls, n_moe, 2, cfg.moe.top_k)[:, prompt - 1:]
+    errs = (lg - lc).abs().amax(-1)[held_served]
     limit = max(1e-3, 4 * rechunk)
-    check(err <= limit and max(errs) <= 1e-3,
+    routed = (f" ({int(held.sum())} of {held.numel()} forward and {int(held_served.sum())} "
+              f"of {held_served.numel()} served logits held)") if n_moe else ""
+    check(err <= limit and errs.max().item() <= 1e-3,
           f"{arch}: card vs CPU (fp32, full width; cut: {cut}): forward {err:.3e} <= "
           f"max(1e-3, 4 x rechunk {rechunk:.3e}) = {limit:.3e}, prefill/decode "
-          f"{max(errs):.3e} <= 1e-3")
+          f"{errs.max().item():.3e} <= 1e-3{routed}")
 
 
 # ---------------------------------------------------------------------------
@@ -1556,16 +1773,21 @@ def main() -> int:
         for check_kernel in (check_flash, check_flash_bwd, check_rmsnorm, check_rmsnorm_bwd,
                              check_ssd):
             with phase(check_kernel.__name__):
-                rows.append(check_kernel(torch))
-        with phase("check_flash_d80_backward_raises"):
-            check_flash_d80_backward_raises(torch)
+                res = check_kernel(torch)
+                rows.extend(res if isinstance(res, list) else [res])
+        with phase("check_flash_backward_raises"):
+            check_flash_backward_raises(torch)
         torch.cuda.empty_cache()
+        register_deepseek_cut()
         launches, e2e = {}, {}
-        for arch in ARCHS:        # one session per arch, reused by its checks
+        for arch in SERVED:       # one session per arch, reused by its checks
             with phase(f"serve {arch}"):
                 launches[arch], sess, e2e[arch], seq = serve_path(torch, arch)
             with phase(f"cache parity {arch}"):
                 check_cache_parity(torch, arch, sess, seq)
+            if sess.cfg.moe.num_experts:
+                with phase(f"moe gather vs dense {arch}"):
+                    check_moe_gather_vs_dense(torch, sess)
             with phase(f"profile {arch}"):
                 e2e[arch]["profile"] = where_the_time_goes(torch, sess)
             del sess, seq
@@ -1575,7 +1797,7 @@ def main() -> int:
         with phase(SUPERVISED_PATH):
             launches[SUPERVISED_PATH], e2e[SUPERVISED_PATH] = supervised_train_path(torch,
                                                                                     card)
-        for arch in ARCHS:
+        for arch in (*ARCHS, DEEPSEEK):
             with phase(f"card vs CPU {arch}"):
                 check_card_vs_cpu(torch, arch)
         with phase("train card vs CPU"):
@@ -1583,9 +1805,10 @@ def main() -> int:
     except CheckFailed:
         return 1
     print(f"all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
-    for row in rows:
-        row["launches_by_path"] = {path: launches[path][row["name"]]
-                                   for path in (*ARCHS, TRAIN_PATH, SUPERVISED_PATH)}
+    for row in rows:             # a row counts its wrapper's launches on its paths
+        counter = row.pop("counter", row["name"])
+        paths = row.pop("paths", (*SERVED, TRAIN_PATH, SUPERVISED_PATH))
+        row["launches_by_path"] = {path: launches[path][counter] for path in paths}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -9,7 +9,7 @@
 // fully masked row gives 0.
 //
 // What bounds it on the H100: operations. At the serving shapes (S=1024,
-// D=64 or 80) each q/k/v byte feeds hundreds of multiply-adds, well above the
+// D=64, 80 or 192) each q/k/v byte feeds hundreds of multiply-adds, well above the
 // ~295 operations per byte where the card stops being memory-bound, so the
 // design is about keeping the tensor cores fed.
 //
@@ -17,7 +17,7 @@
 // shape of the forward:
 //  * A block owns 128 query rows of one (batch, head): two consumer
 //    warpgroups of 64 rows each and one producer warp (288 threads, one
-//    block per SM). Grid (H, B, q tiles) with the q tiles in reverse, so the
+//    block per SM; 384 at D = 192, below). Grid (H, B, q tiles) with the q tiles in reverse, so the
 //    causal blocks with the most kv tiles start first and the short ones
 //    fill the tail.
 //  * The producer loads through TMA (cp.async.bulk.tensor, 4-D tensor maps
@@ -52,11 +52,12 @@
 //    visible range [lo, hi] of kv positions, computed once per row. Soft-cap
 //    runs only when softcap > 0.
 //  * Shared memory: Q 128 x D bf16, and per stage a K and a V tile of BKV x
-//    D bf16 (BKV = 128 for D = 64, 64 for D = 80 and 128), each as
+//    D bf16 (BKV = 128 for D = 64, 64 for D = 80, 128 and 192), each as
 //    64-column (128-byte) blocks: D = 64 is 16 + 3 x (16 + 16) = 112 KB,
-//    D = 80 and 128 are 32 + 3 x (16 + 16) = 128 KB, plus 1 KB to align the
-//    ring to 1024 bytes (the swizzle's period), within the 227 KB a block
-//    may have.
+//    D = 80 and 128 are 32 + 3 x (16 + 16) = 128 KB, D = 192 is 48 + 3 x
+//    (24 + 24) = 192 KB, plus 1 KB to align the ring to 1024 bytes (the
+//    swizzle's period), within the 227 KB a block may have (BKV = 128 at
+//    D = 192 would need 337 KB).
 //  * D = 80 (h2o-danube-1.8b): a 160-byte row does not fit one 128-byte
 //    swizzle atom, so each tile takes two 64-column blocks, as at D = 128.
 //    TMA reads columns 64-127 of the 80-wide tensor map for the second and
@@ -68,13 +69,26 @@
 //    columns of P V (19% of the tile's products) and hold 64 accumulators
 //    a thread for 40 that are used. The padding costs shared memory and TMA
 //    writes into it, not device-memory bytes.
+//  * D = 192 (deepseek-v2's MLA: qk_nope 128 + qk_rope 64, v padded from
+//    128 to 192 by the caller, as the reference pads it): three full
+//    64-column blocks, no zero fill. Q K^T takes 12 k-steps at N = BKV = 64;
+//    P V runs m64n192k16 (wgmma_rs_n192): 96 accumulators a thread beside
+//    S's 32 and P's 16, the most any instantiation holds. ptxas gives a
+//    thread of the 288-thread block at most 168 registers (65,536 / 384, as
+//    if the lone producer warp were a whole warpgroup; every instantiation
+//    used 161-167), and there the D = 192 consumers spilled 48 bytes. So
+//    at D = 192 the block is 384 threads and takes the backward's
+//    setmaxnreg split: the producer warpgroup (one warp works, three
+//    return) drops to 56 registers, the consumer warpgroups rise to 224.
+//    The padded v's 64 zero columns are computed and stored as the
+//    reference computes them.
 //
 // fp32 inputs run flash_fwd_simt: fp32 arithmetic on the CUDA cores, so the
 // result keeps fp32 precision (a bf16 or tf32 product would not). Its
 // ceiling is the 67 TFLOP/s fp32 rate. The model serves in bf16; fp32 is for
 // checks. One block per (q tile of 64 rows, q head, batch); a kv tile that no
 // row of the block can see is skipped whole. Each thread owns D / 16 output
-// columns (5 at D = 80).
+// columns (5 at D = 80, 12 at D = 192).
 //
 // Inputs are read in the model's (B, S, H, D) layout through strides, so the
 // wrapper makes no transposed or padded copies. Ragged Sq and Skv are masked
@@ -145,19 +159,27 @@ __device__ __forceinline__ bool load_kv_positions(const int* kv_pos, int b, int 
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BQ = 128;         // query rows per block: two warpgroups of 64
-constexpr int TC_THREADS = 288;    // 2 consumer warpgroups + 1 producer warp
-constexpr int CONSUMER_WARPS = 8;
+constexpr int CONSUMER_WARPS = 8;  // 2 consumer warpgroups, then the producer warp
 constexpr int STAGES = 3;          // K/V ring depth
+// registers a thread after the D = 192 split (168 each at launch)
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+static_assert(PRODUCER_REGS * 128 + 2 * CONSUMER_REGS * 128 <= 168 * 384,
+              "the register split must fit what the block holds at launch");
 
 template <int D>
 struct TcCfg {
-  static_assert(D == 64 || D == 80 || D == 128, "flash_fwd_wgmma: head dim 64, 80 or 128");
+  static_assert(D == 64 || D == 80 || D == 128 || D == 192,
+                "flash_fwd_wgmma: head dim 64, 80, 128 or 192");
   static constexpr int BKV = D == 64 ? 128 : 64;  // kv rows per tile
   static constexpr int CB = (D + 63) / 64;        // 64-column (128-byte) blocks
   // bytes as TMA writes them: whole blocks, zeros past column D
   static constexpr int Q_BYTES = TC_BQ * CB * 128;
   static constexpr int KV_BYTES = BKV * CB * 128; // one K or one V tile
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES;
+  static_assert(SMEM <= 232448 - 1024, "flash_fwd_wgmma: above the 227 KB opt-in");
+  // D = 192: a whole producer warpgroup, for the setmaxnreg split
+  static constexpr bool SPLIT = D == 192;
+  static constexpr int THREADS = SPLIT ? 384 : 288;
 };
 
 // O += P V over one kv tile: BKV/16 wgmma with A = P from registers and B =
@@ -173,7 +195,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 }
 
 template <int D, bool LSE>
-__global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma(
+__global__ void __launch_bounds__(TcCfg<D>::THREADS, 1) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ q_pos,
     const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ o, int Sq, int Skv,
@@ -209,7 +231,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma(
   }
   __syncthreads();
 
-  if (warp == CONSUMER_WARPS) {
+  // one if-else for the roles, never rejoined, so that ptxas applies each
+  // side's register count (its note C7508 otherwise)
+  if (warp >= CONSUMER_WARPS) {
+    if constexpr (C::SPLIT) setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > CONSUMER_WARPS) return;           // one producer warp works
     // ---- producer warp: classify kv tiles, load Q once and K/V by TMA ----
     int qmin = INT_MAX, qmax = INT_MIN;
     for (int r = lane; r < TC_BQ; r += 32) {
@@ -276,6 +302,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma(
       mbar_arrive(&full_bar[stage]);
     }
   } else {
+    if constexpr (C::SPLIT) setmaxnreg_inc<CONSUMER_REGS>();
     // ---- consumer warpgroups: 64 query rows each ----
     const int wg = warp >> 2;
     const int g = lane >> 2, t = lane & 3;
@@ -644,7 +671,7 @@ int launch_wgmma(const Args& a) {
       flash_fwd_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.H, a.B, (a.Sq + TC_BQ - 1) / TC_BQ);
-  flash_fwd_wgmma<D, LSE><<<grid, TC_THREADS, C::SMEM, a.stream>>>(
+  flash_fwd_wgmma<D, LSE><<<grid, C::THREADS, C::SMEM, a.stream>>>(
       tq, tk, tv, a.q_pos, a.kv_pos, static_cast<__nv_bfloat16*>(a.o), a.Sq, a.Skv, a.H,
       a.KV, a.causal, a.window, a.scale, a.softcap, a.lse);
   return (int)cudaGetLastError();
@@ -673,9 +700,11 @@ int run(const Args& a, int D, int dtype) {
   if (dtype == 0 && D == 64) return launch_simt<64, LSE>(a);
   if (dtype == 0 && D == 80) return launch_simt<80, LSE>(a);
   if (dtype == 0 && D == 128) return launch_simt<128, LSE>(a);
+  if (dtype == 0 && D == 192) return launch_simt<192, LSE>(a);
   if (dtype == 1 && D == 64) return launch_wgmma<64, LSE>(a);
   if (dtype == 1 && D == 80) return launch_wgmma<80, LSE>(a);
   if (dtype == 1 && D == 128) return launch_wgmma<128, LSE>(a);
+  if (dtype == 1 && D == 192) return launch_wgmma<192, LSE>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -179,15 +179,6 @@ struct BwdCfg {
   static constexpr int DQ_SMEM = 1024 + 2 * OWN_BYTES + STAGES * 2 * KT_BYTES;
 };
 
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-
 // P and dS of one score element from S (raw q.k), dP, the row's lse (log2
 // units) and delta; `ok` false masks it (P = 0, dS = 0)
 struct Score {

@@ -11,9 +11,10 @@ LSE-writing entry and keeps (q, k, v, out, lse) for :func:`flash_attention_bwd`.
 Otherwise (serving, ``torch.no_grad()``) it launches the serving entry,
 which writes no LSE.
 
-The forward kernels take head dims 64, 80 and 128; the backward kernel 64
-and 128. Off the CPU, a gradient at another head dim raises before the
-forward launches anything (ROADMAP Queue 2 item A).
+The forward kernels take head dims 64, 80, 128 and 192 (MLA's qk dim, v
+padded to it); the backward kernel 64 and 128. Off the CPU, a gradient at
+another head dim raises before the forward launches anything (ROADMAP
+Queue 2 item A).
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import torch
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
-HEAD_DIMS = (64, 80, 128)      # the forward kernels
-BWD_HEAD_DIMS = (64, 128)      # the backward kernel
+HEAD_DIMS = (64, 80, 128, 192)  # the forward kernels
+BWD_HEAD_DIMS = (64, 128)        # the backward kernel
 
 
 def _check(q, k, v, q_positions, kv_positions, window) -> None:

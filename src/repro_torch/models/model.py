@@ -8,11 +8,13 @@ tree the JAX package's (``embed/tok``, ``segments[i]`` as a tuple of
 per-layer dicts, ``final_norm/scale``), so weights move between the two
 packages by a plain mapping (:mod:`repro_torch.bridge`).
 
-The port implements the ``attn`` and ``mamba`` mixers and the ``dense`` and
-``none`` MLPs, in any pattern; MoE, MLA and cross-attention raise
-``NotImplementedError`` naming their ROADMAP item. Training (:meth:`Model.loss`
-under autograd) runs through the flash-attention and RMSNorm backward kernels
-on the card; the SSD kernel has no backward yet and raises there.
+The port implements the ``attn`` mixer (GQA and MLA) and the ``mamba`` mixer,
+and the ``dense``, ``moe`` and ``none`` MLPs, in any pattern; cross-attention
+and the modality frontends raise ``NotImplementedError`` naming their ROADMAP
+item. Training (:meth:`Model.loss` under autograd) runs through the
+flash-attention and RMSNorm backward kernels on the card; the SSD kernel has
+no backward yet and raises there, and so does the flash backward at a head
+dim it lacks (MLA's 192).
 """
 from __future__ import annotations
 
@@ -27,16 +29,19 @@ from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.spec import init_params, is_spec, stack_specs, tree_map
 from repro_torch.utils import resolve_device
 
 Params = Any
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Leaves the reference reads in fp32 whatever the compute dtype: RMSNorm
-# scales (``scale``; mamba's gated-norm ``norm``, which the RMSNorm kernel
-# takes only in fp32), and mamba's ``A_log`` and ``dt_bias``, which feed the
-# fp32 ``A = -exp(A_log)`` and ``softplus(dt + dt_bias)``.
-_FP32_LEAVES = ("['scale']", "['norm']", "['A_log']", "['dt_bias']")
+# scales (``scale``; mamba's gated-norm ``norm`` and MLA's ``kv_norm`` and
+# ``q_norm``, which the RMSNorm kernel takes only in fp32), and mamba's
+# ``A_log`` and ``dt_bias``, which feed the fp32 ``A = -exp(A_log)`` and
+# ``softplus(dt + dt_bias)``.
+_FP32_LEAVES = ("['scale']", "['norm']", "['kv_norm']", "['q_norm']", "['A_log']",
+                "['dt_bias']")
 
 
 # ---------------------------------------------------------------------------
@@ -104,8 +109,6 @@ def _check_plan(cfg: ModelConfig, plan: LayerPlan) -> None:
     if plan.cross_attn:
         raise NotImplementedError(f"{cfg.name}: cross-attention is ROADMAP "
                                   "Queue 1 item 11 (encoder-decoder)")
-    if plan.mlp == "moe":
-        raise NotImplementedError(f"{cfg.name}: MoE is ROADMAP Queue 1 item 9")
 
 
 def _layer_specs(cfg: ModelConfig, plan: LayerPlan) -> dict:
@@ -116,8 +119,11 @@ def _layer_specs(cfg: ModelConfig, plan: LayerPlan) -> dict:
         specs["attn"] = attn_lib.attn_specs(cfg.attention, d)
     else:
         specs["mamba"] = mamba_lib.mamba_specs(cfg.ssm, d)
-    if plan.mlp == "dense":
+    if plan.mlp != "none":
         specs["ln2"] = L.rmsnorm_specs(d)
+    if plan.mlp == "moe":
+        specs["moe"] = moe_lib.moe_specs(d, cfg.moe, cfg.mlp_act)
+    elif plan.mlp == "dense":
         specs["mlp"] = L.mlp_specs(d, plan.d_ff, cfg.mlp_act)
     return specs
 
@@ -141,13 +147,18 @@ def _cache_len(cfg: ModelConfig, plan: LayerPlan) -> int:
     return cfg.max_seq_len
 
 
-def _apply_layer(cfg: ModelConfig, plan: LayerPlan, params: Params,
-                 h: torch.Tensor, *, positions, dtype, mode: str,
+def _apply_layer(cfg: ModelConfig, parallel: ParallelConfig, plan: LayerPlan,
+                 params: Params, h: torch.Tensor, *, positions, dtype, mode: str,
                  cache: Optional[dict], cur_index: Optional[int],
-                 max_cache_len: int = 0) -> tuple[torch.Tensor, dict]:
-    """Returns (h, new_cache)."""
+                 max_cache_len: int = 0) -> tuple[torch.Tensor, dict, torch.Tensor]:
+    """Returns (h, new_cache, aux): aux is the MoE load-balancing loss of
+    the layer (already times ``router_aux_coef``) in ``mode == "train"``,
+    the number 0.0 otherwise and for other MLPs (serving launches nothing
+    for it)."""
     new_cache: dict = {}
+    aux = 0.0
     acfg = cfg.attention
+    mla = acfg is not None and acfg.kind == "mla"
     x = L.rmsnorm(params["ln1"], h, cfg.norm_eps)
     if plan.mixer == "mamba":
         kw = dict(d_model=cfg.d_model, dtype=dtype, norm_eps=cfg.norm_eps)
@@ -160,36 +171,71 @@ def _apply_layer(cfg: ModelConfig, plan: LayerPlan, params: Params,
         else:
             y = mamba_lib.mamba_forward(params["mamba"], cfg.ssm, x, **kw)
     elif mode == "decode":
-        y, new_cache["kv"] = attn_lib.gqa_decode(
-            params["attn"], acfg, x, cache["kv"], cur_index,
-            window=plan.window, dtype=dtype)
+        if mla:
+            y, new_cache["kv"] = attn_lib.mla_decode(
+                params["attn"], acfg, x, cache["kv"], cur_index, dtype=dtype)
+        else:
+            y, new_cache["kv"] = attn_lib.gqa_decode(
+                params["attn"], acfg, x, cache["kv"], cur_index,
+                window=plan.window, dtype=dtype)
     else:
-        y = attn_lib.gqa_forward(params["attn"], acfg, x, positions,
-                                 window=plan.window, dtype=dtype)
+        if mla:
+            y = attn_lib.mla_forward(params["attn"], acfg, x, positions, dtype=dtype)
+        else:
+            y = attn_lib.gqa_forward(params["attn"], acfg, x, positions,
+                                     window=plan.window, dtype=dtype)
         if mode == "prefill":
             # ring-buffer length: the window (SWA) or the decode horizon
             # (defaults to the model max)
             horizon = max_cache_len or cfg.max_seq_len
             cache_len = min(_cache_len(cfg, plan), max(horizon, x.shape[1]))
-            new_cache["kv"] = attn_lib.gqa_prefill_cache(
-                params["attn"], acfg, x, positions, cache_len, dtype)
+            prefill_cache = attn_lib.mla_prefill_cache if mla else attn_lib.gqa_prefill_cache
+            new_cache["kv"] = prefill_cache(params["attn"], acfg, x, positions,
+                                            cache_len, dtype)
     h = h + y
     if plan.mlp == "none":
-        return h, new_cache
+        return h, new_cache, aux
     x2 = L.rmsnorm(params["ln2"], h, cfg.norm_eps)
-    return h + L.mlp(params["mlp"], x2, cfg.mlp_act, dtype), new_cache
+    if plan.mlp == "moe":
+        y, aux = moe_lib.moe_forward(params["moe"], cfg, x2, parallel=parallel,
+                                     decode=(mode == "decode"), dtype=dtype,
+                                     with_aux=(mode == "train"))
+    else:
+        y = L.mlp(params["mlp"], x2, cfg.mlp_act, dtype)
+    return h + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
 # model
 # ---------------------------------------------------------------------------
 
+class _Node(nn.Module):
+    """A dict of tensors and subtrees side by side (an MoE layer's experts
+    beside its ``shared`` MLP), indexed by key."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, _as_module(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
 def _as_module(tree: Any) -> nn.Module:
-    """Nested dicts/lists/tuples of tensors as ModuleDict/ParameterDict/ModuleList."""
+    """Nested dicts/lists/tuples of tensors as ModuleDict/ParameterDict/
+    ModuleList (and :class:`_Node` for a dict that mixes tensors and
+    subtrees)."""
     if isinstance(tree, dict):
-        if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        leaves = [isinstance(v, torch.Tensor) for v in tree.values()]
+        if all(leaves):
             return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                                      for k, v in tree.items()})
+        if any(leaves):
+            return _Node(tree)
         return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
     return nn.ModuleList([_as_module(v) for v in tree])
 
@@ -284,7 +330,7 @@ class Model(nn.Module):
     def _run_segments(self, p, h, *, positions, mode, caches=None,
                       cur_index=None, max_cache_len=0):
         """Apply all segments of the parameter tree ``p``; returns (h,
-        new_caches).
+        new_caches, aux), aux summed over the layers.
 
         Each stacked leaf is unbound once into its repeats: autograd then
         stacks their gradients in one operation (indexing each repeat would
@@ -298,6 +344,7 @@ class Model(nn.Module):
         remat = (mode == "train" and self.parallel.remat != "none"
                  and torch.is_grad_enabled())
         new_caches = []
+        aux = 0.0                       # a tensor once an MoE layer adds to it
         for si, seg in enumerate(self.segments):
             built = [[] for _ in seg.pattern]     # prefill: one cache per repeat
             layers = [tree_map(lambda _, t: t.unbind(0), lp, is_leaf=_is_tensor)
@@ -305,13 +352,17 @@ class Model(nn.Module):
             for r in range(seg.repeat):
                 if remat:
                     def body(hh, _seg=seg, _layers=layers, _r=r):
+                        total = 0.0
                         for plan, lp in zip(_seg.pattern, _layers):
-                            hh, _ = _apply_layer(
-                                cfg, plan, tree_map(lambda _, t: t[_r], lp, is_leaf=_is_tuple),
+                            hh, _, a = _apply_layer(
+                                cfg, self.parallel, plan,
+                                tree_map(lambda _, t: t[_r], lp, is_leaf=_is_tuple),
                                 hh, positions=positions, dtype=self.dtype, mode=mode,
                                 cache=None, cur_index=None)
-                        return hh
-                    h = torch.utils.checkpoint.checkpoint(body, h, use_reentrant=False)
+                            total = total + a
+                        return hh, total
+                    h, a = torch.utils.checkpoint.checkpoint(body, h, use_reentrant=False)
+                    aux = aux + a
                     continue
                 for li, plan in enumerate(seg.pattern):
                     lp = tree_map(lambda _, t: t[r], layers[li], is_leaf=_is_tuple)
@@ -319,16 +370,17 @@ class Model(nn.Module):
                     if caches is not None:
                         c = tree_map(lambda _, t: t[r], caches[si][li],
                                      is_leaf=_is_tensor)
-                    h, nc = _apply_layer(cfg, plan, lp, h, positions=positions,
-                                         dtype=self.dtype, mode=mode, cache=c,
-                                         cur_index=cur_index,
-                                         max_cache_len=max_cache_len)
+                    h, nc, a = _apply_layer(cfg, self.parallel, plan, lp, h,
+                                            positions=positions, dtype=self.dtype,
+                                            mode=mode, cache=c, cur_index=cur_index,
+                                            max_cache_len=max_cache_len)
+                    aux = aux + a
                     built[li].append(nc)
             if mode == "decode":
                 new_caches.append(caches[si])     # updated in place
             elif mode == "prefill":
                 new_caches.append(tuple(_stack(cs) for cs in built))
-        return h, new_caches
+        return h, new_caches, aux
 
     # -- public entry points ------------------------------------------------
 
@@ -337,16 +389,19 @@ class Model(nn.Module):
         """Full-sequence forward to final hidden states, with ``params`` (a
         tree shaped like :meth:`specs`) or the serving copies.
 
-        Returns (h, caches); caches is None unless ``mode == "prefill"``."""
+        Returns (h, caches, aux); caches is None unless ``mode ==
+        "prefill"``; aux is the MoE load-balancing loss summed over the
+        layers (a tensor) in ``mode == "train"``, else 0.0, and 0.0 without
+        MoE layers."""
         cfg = self.cfg
         p = self._compute if params is None else params
         tok = batch["tokens"]
         h = L.embed(p["embed"], tok, self.dtype, cfg.d_model)
         positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-        h, caches = self._run_segments(p, h, positions=positions, mode=mode,
-                                       max_cache_len=max_cache_len)
+        h, caches, aux = self._run_segments(p, h, positions=positions, mode=mode,
+                                            max_cache_len=max_cache_len)
         h = L.rmsnorm(p["final_norm"], h, cfg.norm_eps)
-        return h, (caches if mode == "prefill" else None)
+        return h, (caches if mode == "prefill" else None), aux
 
     def logits_fn(self, params: Optional[Params] = None):
         p = self._compute if params is None else params
@@ -360,12 +415,11 @@ class Model(nn.Module):
         return self.logits_fn()(h)
 
     def loss(self, params: Params, batch: dict):
-        """Mean cross-entropy (+ z-loss; MoE aux is 0, the port has no MoE
-        yet). Returns (loss, metrics) as the JAX package's ``Model.loss``
-        does. The z-loss weight is the reference's ``getattr(self, "z_loss",
+        """Mean cross-entropy (+ z-loss + MoE aux). Returns (loss, metrics)
+        as the JAX package's ``Model.loss`` does. The z-loss weight is the reference's ``getattr(self, "z_loss",
         1e-4)``, which ignores ``TrainConfig.z_loss`` (kept, so that the
         numbers match; ROADMAP Queue 3)."""
-        h, _ = self.hidden_states(batch, mode="train", params=params)
+        h, _, aux = self.hidden_states(batch, mode="train", params=params)
         weights = batch.get("weights")
         if weights is None:
             weights = torch.ones(batch["tokens"].shape, dtype=torch.float32,
@@ -374,14 +428,14 @@ class Model(nn.Module):
         total, wsum = L.softmax_xent_chunked(self.logits_fn(params), h, batch["labels"],
                                              weights, z_loss=z)
         xent = total / torch.clamp(wsum, min=1.0)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": wsum}
 
     @torch.no_grad()
     def forward_logits(self, batch: dict) -> torch.Tensor:
         """(B, S, V) logits — for small-model evaluation/serving checks."""
-        h, _ = self.hidden_states(batch, mode="train")
+        h, _, _ = self.hidden_states(batch, mode="train")
         return self.logits(h)
 
     @torch.no_grad()
@@ -390,8 +444,8 @@ class Model(nn.Module):
 
         ``max_cache_len`` sizes the full-attention ring buffers (the decode
         horizon); 0 means the model's max context."""
-        h, caches = self.hidden_states(batch, mode="prefill",
-                                       max_cache_len=max_cache_len)
+        h, caches, _ = self.hidden_states(batch, mode="prefill",
+                                          max_cache_len=max_cache_len)
         return self.logits(h[:, -1:])[:, 0], caches
 
     @torch.no_grad()
@@ -401,8 +455,9 @@ class Model(nn.Module):
         Returns (logits (B, V), caches); the caches are updated in place."""
         cfg = self.cfg
         h = L.embed(self._compute["embed"], tokens[:, None], self.dtype, cfg.d_model)
-        h, caches = self._run_segments(self._compute, h, positions=None, mode="decode",
-                                       caches=caches, cur_index=int(cur_index))
+        h, caches, _ = self._run_segments(self._compute, h, positions=None,
+                                          mode="decode", caches=caches,
+                                          cur_index=int(cur_index))
         h = L.rmsnorm(self._compute["final_norm"], h, cfg.norm_eps)
         return self.logits(h)[:, 0], caches
 
@@ -415,8 +470,9 @@ class Model(nn.Module):
             for plan in seg.pattern:
                 if plan.mixer == "attn":
                     clen = min(_cache_len(cfg, plan), max(prompt_len, 1))
-                    c = {"kv": attn_lib.gqa_cache_init(cfg.attention, batch, clen,
-                                                       self.dtype, self.device)}
+                    init = (attn_lib.mla_cache_init if cfg.attention.kind == "mla"
+                            else attn_lib.gqa_cache_init)
+                    c = {"kv": init(cfg.attention, batch, clen, self.dtype, self.device)}
                 else:
                     c = {"ssm": mamba_lib.mamba_cache_init(
                         cfg.ssm, batch, cfg.d_model, self.dtype, self.device)}

@@ -69,8 +69,9 @@ def port_config(cfg) -> tcfg.ModelConfig:
 
 @pytest.mark.parametrize("getter", ["get_arch", "get_smoke"])
 def test_configs_equal_jax_field_for_field(getter):
-    assert tcfg.list_archs() == ["gemma3-27b", "h2o-danube-1.8b", "internlm-123b",
-                                 "internlm-7b", "mamba2-1.3b", "nemotron-4-15b",
+    assert tcfg.list_archs() == ["deepseek-v2-lite-16b", "gemma3-27b", "h2o-danube-1.8b",
+                                 "internlm-123b", "internlm-7b", "jamba-1.5-large-398b",
+                                 "mamba2-1.3b", "mixtral-8x22b", "nemotron-4-15b",
                                  "smollm-360m"]
     for name in tcfg.list_archs():
         port = getattr(tcfg, getter)(name)

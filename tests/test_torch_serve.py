@@ -64,6 +64,28 @@ def test_danube_session_tokens_equal_jax_greedy_generate():
     assert sess._caches[0][0]["kv"]["k"].shape[2] == cfg.attention.sliding_window
 
 
+def test_deepseek_session_tokens_equal_jax_greedy_generate():
+    """deepseek-v2-lite-16b's smoke config (MLA with its latent cache, a
+    dense first layer, then MoE layers with a shared expert): the session's
+    greedy stream, split over two decode calls, equals the JAX package's
+    ``greedy_generate``, and its caches are the latent ones."""
+    cfg = dataclasses.replace(jax_get_smoke("deepseek-v2-lite-16b"), dtype="float32")
+    jm = JaxModel(cfg, ParallelConfig(remat="none", moe_impl="dense"))
+    params = jm.init(jax.random.PRNGKey(8))
+    sess = ServeSession("deepseek-v2-lite-16b", smoke=True, device="cpu", dtype="float32")
+    sess.model.load_params(params_from_numpy(jax.tree_util.tree_map(np.asarray, params)))
+    batch = sess.make_batch(2, 20, seed=2)
+    with runtime.pallas_enabled(interpret=True):
+        want = jax_greedy_generate(jm, params, jnp.asarray(batch["tokens"].numpy()), 10)
+    sess.prefill(batch)
+    a, _ = sess.decode_step(4)
+    b, _ = sess.decode_step(6)
+    np.testing.assert_array_equal(torch.cat([a, b], dim=1).numpy(), np.asarray(want))
+    kv = sess._caches[1][0]["kv"]
+    assert sorted(kv) == ["ckv", "k_rope", "pos"]
+    assert kv["ckv"].shape[-1] == cfg.attention.kv_lora_rank
+
+
 def test_serve_session_stream_is_contiguous():
     """Two chained decode_step calls equal one generate of the same total."""
     sess = ServeSession("smollm-360m", smoke=True, device="cpu")

@@ -294,12 +294,15 @@ def _check_step(tmet, jmet, leaves, *, mv_tol, norm_rtol=1e-5):
                                f"max |d| {np.abs(ours - theirs).max():.3e}")
 
 
-@pytest.mark.parametrize("which", ["tiny", "smollm-360m smoke"])
+@pytest.mark.parametrize("which", ["tiny", "smollm-360m smoke", "deepseek-v2-lite-16b smoke"])
 def test_train_step_matches_jax_fp32(which, tiny_cfg):
     """fp32 compute and gradients, 2 microbatches, after step 1 and step 2:
     m and v to 1e-5 of each leaf's largest |value| (the target; fp32
-    summation order gives ~2e-6)."""
-    cfg = tiny_cfg if which == "tiny" else jax_get_smoke("smollm-360m")
+    summation order gives ~2e-6). The deepseek smoke config trains MLA (the
+    plain flash gradient at head dim 24) and MoE, whose loss adds the
+    router's load-balancing aux (no mesh: the reference runs its dense
+    path)."""
+    cfg = tiny_cfg if which == "tiny" else jax_get_smoke(which.split()[0])
     cfg = dataclasses.replace(cfg, dtype="float32")
     for tmet, jmet, leaves in _gate(cfg, grad_dtype="float32"):
         _check_step(tmet, jmet, leaves, mv_tol=lambda ref: 1e-5 * np.abs(ref).max())
